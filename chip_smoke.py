@@ -6,14 +6,21 @@ Phases (any failure exits non-zero):
 1. device: print `nvidia-smi` name and power limit; fail without CUDA;
 2. build: compile the CUDA kernels from this checkout's `csrc/` (timed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the shapes celebahq_expe5 reconstruction gives it, timed beside
-   its bound and a one-call PyTorch yardstick;
-4. slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch 16,
-   256 px, bf16, seeded random weights, with the kernels' launch counts
+   the card at the shapes celebahq_expe5 gives it, timed beside its bound
+   and a one-call PyTorch yardstick: the forward kernels at the
+   reconstruction's shapes, the GroupNorm backward kernels at every shape a
+   train step's backward gives them (a census of one step with the
+   discriminator and one without);
+4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
+   16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
-5. cross-check: the same weights and 2 images reconstructed on the card
-   (bf16, and f32 with TF32 off) and on the CPU in f32 through the plain
-   versions.
+5. train slice: `favae_tpu_torch.cli.train_favae` at celebahq_expe5, batch
+   16, 256 px, bf16, two epochs of 64 synthetic batches (the discriminator
+   from the second) plus validation, counts zeroed just before and read
+   just after and held to what the census implies;
+6. cross-checks: the same weights reconstructing 2 images, and taking one
+   train step on 2 images at 64 px, on the card (bf16, and f32 with TF32
+   off) and on the CPU in f32 through the plain versions.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. TF32 is off for matmuls and cuDNN.
 """
@@ -35,6 +42,23 @@ F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 VQ_NEAR_TIE = 1e-5          # a chosen code may trail the best score by this
 SLICE_ARGS = ["--preset", "celebahq_expe5", "--synthetic_data",
               "--batch_size", "16", "--max_images", "64"]
+TRAIN_ARGS = ["--ds", "chip_smoke", "--output_dir", str(ROOT / "output"),
+              "--preset", "celebahq_expe5", "--synthetic_data",
+              "--batch_size", "16", "--epochs", "2", "--disc_start_epochs", "1",
+              "--print_steps", "16"]
+# train cross-check bounds, f32 on the card against f32 on the CPU: loss
+# terms and weight_d relative; codebook EMA and BatchNorm running statistics
+# relative to each tensor's largest entry (the stage-1 recompute updates
+# both through the stepped generator, whose parameters already differ by
+# Adam's sign flips: 1.05e-4 measured on the codebook on an H100); the
+# parameters in units of the learning rate (Adam's first step
+# moves each parameter by about lr * sign(g), and one f32 ulp of a unit
+# parameter is 0.03 lr at lr 4e-6); bf16 on the card: each loss term and
+# weight_d finite and within BF16_BAND of the f32 one, relative or absolute
+# (the hinge-G term is a mean of logits that cancel, ~0.03)
+TRAIN_XCHECK = {"loss_rel": 1e-3, "state_rel": 1e-3, "param_max_lr": 2.1,
+                "param_mean_lr": 0.01}
+BF16_BAND = {"rel": 0.1, "abs": 0.02}
 # cross-check bounds of a card model (bf16, and f32 with TF32 off) against
 # f32 on the CPU through the plain versions; see cross_check(). Measured on
 # an H100 with seeded random weights: bf16 decode 42.2 dB, 496/512 codes
@@ -174,7 +198,7 @@ def check_gn(key, seed):
     stats_rel = ((s - p).abs() / mag).max().item()
     stats_abs = (s - p).abs().max().item()
 
-    a, b = gn.gn_affine(p, scale, bias, 32, hw, 1e-5)
+    a, b, _, _ = gn.gn_affine(p, scale, bias, 32, hw, 1e-5)
     y = gn.gn_apply(x, a, b, act, out_dt).float()
     yp = gn.gn_apply_plain(x, a, b, act, out_dt).float()
     apply_err = (y - yp).abs()
@@ -220,20 +244,28 @@ def check_gn(key, seed):
     return row
 
 
-def per_batch(gn_rows, census, part, field):
+def weighted(rows, census, part, field):
     """A GroupNorm number summed over the distinct shapes, each weighted by
-    its calls in one reconstruction batch (rows are in census order)."""
-    return sum(r[part][field] * n for r, n in zip(gn_rows, census.values()))
+    its calls (rows in census order): per recon batch for the forward
+    census, per train step for the backward one."""
+    return sum(r[part][field] * n for r, n in zip(rows, census.values()))
 
 
-def kernel_rows(vq_main, gn_rows, census, launches):
-    """The `kernels` line: one entry per kernel; the GroupNorm entries are
-    per recon batch (`per_batch`)."""
+def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
+                recon_launches):
+    """The `kernels` line: one entry per kernel. `launches` are the train
+    slice's (every kernel runs there), `launches_recon` the recon slice's.
+    The forward GroupNorm entries are per recon batch (`weighted` by the
+    recon census), the backward ones per train step (by the train census); the backward entries carry
+    the backward through F.silu(F.group_norm(...)) as library_ms, which
+    computes the whole GroupNorm backward (both kernels and the fold)."""
     rows = [{
         "name": "vq_nearest", "route": "cuda",
         "source": "favae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "favae_tpu/ops/vq_pallas.py:65",
-        "launches": launches["vq_nearest"], "shape": vq_main["shape"],
+        "launches": launches["vq_nearest"],
+        "launches_recon": recon_launches["vq_nearest"],
+        "shape": vq_main["shape"],
         **{f: vq_main[f] for f in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}}]
     for name, part, replaces in (
@@ -243,13 +275,335 @@ def kernel_rows(vq_main, gn_rows, census, launches):
             "name": name, "route": "triton",
             "source": "favae_tpu_torch/ops/gn.py",
             "replaces": replaces, "launches": launches[name],
+            "launches_recon": recon_launches[name],
             "shape": f"{sum(census.values())} calls over {len(census)} "
                      "shapes, per recon batch",
             "max_abs_err": max(r[part]["max_abs_err"] for r in gn_rows),
-            **{f: per_batch(gn_rows, census, part, f)
+            **{f: weighted(gn_rows, census, part, f)
                for f in ("ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes", "library_ms": None})
+    lib = weighted(bwd_rows, bwd_census, "backward", "library_ms")
+    for name, part, err, replaces in (
+            ("gn_bwd_sums", "sums", "max_rel_err",
+             "favae_tpu/ops/gn_pallas.py:89"),
+            ("gn_bwd_dx", "dx", "max_abs_err",
+             "favae_tpu/ops/gn_pallas.py:109")):
+        rows.append({
+            "name": name, "route": "triton",
+            "source": "favae_tpu_torch/ops/gn.py",
+            "replaces": replaces, "launches": launches[name],
+            "shape": f"{sum(bwd_census.values())} calls over "
+                     f"{len(bwd_census)} shapes, per train step",
+            "max_abs_err": max(r[part][err] for r in bwd_rows),
+            "max_abs_err_is": "relative to the summed magnitudes"
+                              if part == "sums" else "absolute",
+            **{f: weighted(bwd_rows, bwd_census, part, f)
+               for f in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes", "library_ms": lib})
     return rows
+
+
+def train_census(state, model_cfg, loss_cfg, train_cfg, x):
+    """One train step with the discriminator and one without, at the train
+    slice's shapes: the distinct GroupNorm backward calls, keyed (N, C, H,
+    W, act, x dtype, dy dtype) with their calls a step, how many incoming
+    gradients were not channels_last (copied by the backward), and each
+    kernel's launches a step."""
+    import torch
+    from favae_tpu_torch.models.blocks import GroupNormAct
+    from favae_tpu_torch.ops import gn, vq
+    from favae_tpu_torch.train.favae_step import make_train_step
+    seen = {}
+
+    def hook(mod, args, out):
+        if not out.requires_grad:
+            return
+        t = args[0]
+        key = (*t.shape, mod.act, str(t.dtype).split(".")[1],
+               str(out.dtype).split(".")[1])
+
+        def on_grad(g):
+            seen[key] = seen.get(key, 0) + 1
+        out.register_hook(on_grad)
+
+    handles = [m.register_forward_hook(hook) for m in state.model.modules()
+               if isinstance(m, GroupNormAct)]
+    per_step = {}
+    try:
+        for disc_on in (True, False):
+            step = make_train_step(model_cfg, loss_cfg, train_cfg,
+                                   disc_on=disc_on, ffl_on=True)
+            before = {**vq.LAUNCHES, **gn.LAUNCHES}
+            copies = gn.DY_COPIES["not_channels_last"]
+            state, m = step(state, x)
+            torch.cuda.synchronize()
+            per_step[disc_on] = {k: v - before[k] for k, v in
+                                 {**vq.LAUNCHES, **gn.LAUNCHES}.items()}
+            per_step[disc_on]["dy_copies"] = (gn.DY_COPIES["not_channels_last"]
+                                              - copies)
+            if not math.isfinite(float(m["loss_g"])):
+                raise AssertionError("census step: non-finite loss_g")
+    finally:
+        for h in handles:
+            h.remove()
+    calls = {k: v // 2 for k, v in seen.items()}  # two steps, one each
+    return calls, per_step
+
+
+def check_gn_bwd(key, seed):
+    """gn_bwd_sums and gn_bwd_dx against their plain versions, and the whole
+    autograd.Function backward against the plain Function, at one backward
+    shape; timed beside their bounds, the plain versions and the backward
+    through F.silu(F.group_norm(...))."""
+    import torch
+    import torch.nn.functional as F
+    from favae_tpu_torch.ops import gn
+    n, c, h, w, act, in_dt, out_dt = key
+    in_dt, out_dt = getattr(torch, in_dt), getattr(torch, out_dt)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    x = (torch.randn(n, c, h, w, device="cuda", generator=g) * 2 + 0.5).to(
+        in_dt).contiguous(memory_format=cl)
+    dy = torch.randn(n, c, h, w, device="cuda", generator=g).to(
+        out_dt).contiguous(memory_format=cl)
+    scale = torch.randn(c, device="cuda", generator=g)
+    bias = torch.randn(c, device="cuda", generator=g)
+    hw, elems, cg = h * w, n * c * h * w, c // 32
+    xb, dyb, vec = elems * x.element_size(), elems * dy.element_size(), n * c * 4
+
+    a, b, mean, inv = gn.gn_affine(gn.gn_stats_plain(x), scale, bias, 32, hw,
+                                   1e-5)
+    p = inv.expand(-1, -1, cg).reshape(n, c)
+    q = (-mean * inv).expand(-1, -1, cg).reshape(n, c)
+    s, sp = (gn.gn_bwd_sums(x, dy, a, b, p, q, act),
+             gn.gn_bwd_sums_plain(x, dy, a, b, p, q, act))
+    xf, gg = gn.act_grad_plain(x, dy, a, b, act)
+    xhat = xf * p[:, :, None, None] + q[:, :, None, None]
+    mag = torch.stack([gg.abs().sum(dim=(2, 3)),
+                       (gg * xhat).abs().sum(dim=(2, 3))], dim=1)
+    sums_rel = ((s - sp).abs() / mag.clamp_min(1e-30)).max().item()
+
+    dscale, dbias, c2, c3 = gn.gn_bwd_fold(sp, scale, mean, inv, hw)
+    dx = gn.gn_bwd_dx(x, dy, a, b, c2, c3, act).float()
+    dxp = gn.gn_bwd_dx_plain(x, dy, a, b, c2, c3, act).float()
+    # one rounding of x.dtype apart at most, beside f32 error of the terms
+    ulp = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}.get(in_dt, 1e-6)
+    terms = (a[:, :, None, None] * gg).abs() + c2.abs()[:, :, None, None] \
+        + (c3[:, :, None, None] * xf).abs()
+    dx_err = (dx - dxp).abs()
+    dx_ok = bool((dx_err <= 1e-5 * terms + ulp * dxp.abs() + 1e-6).all())
+
+    # the whole Function, kernels against the plain versions, on the card
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+        y = fn(*ins, 32, act=act, out_dtype=out_dt)
+        if y.grad_fn is None:
+            raise AssertionError("group_norm_act output on CUDA has no grad_fn")
+        return y, ins, torch.autograd.grad(y, ins, dy, retain_graph=True)
+
+    y, ins, (fdx, fds, fdb) = grads(gn.group_norm_act)
+    _, _, (pdx, pds, pdb) = grads(gn.group_norm_act_plain)
+    mag_s = mag.sum(0)
+    fn_dx_ok = bool(((fdx.float() - pdx.float()).abs()
+                     <= 1e-5 * terms + ulp * pdx.float().abs() + 1e-4).all())
+    fn_rel = max(((fds - pds).abs() / mag_s[1].clamp_min(1e-30)).max().item(),
+                 ((fdb - pdb).abs() / mag_s[0].clamp_min(1e-30)).max().item())
+
+    ws, bs = scale.to(in_dt), bias.to(in_dt)
+    xl = x.detach().clone().requires_grad_()
+    wl, bl = ws.clone().requires_grad_(), bs.clone().requires_grad_()
+
+    def lib_fwd():
+        yl = F.group_norm(xl, 32, wl, bl, 1e-5)
+        return F.silu(yl) if act == "silu" else yl
+
+    yl = lib_fwd()
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), [xl, wl, bl], dy)
+
+    def ours_fwd_bwd():
+        yo = gn.group_norm_act(ins[0], ins[1], ins[2], 32, act=act,
+                               out_dtype=out_dt)
+        torch.autograd.grad(yo, ins, dy)
+
+    n_ops_g = 15 if act == "silu" else 1
+    row = {
+        "shape": f"N={n} C={c} H={h} W={w} act={act} {in_dt}/{out_dt}",
+        "sums": {"max_rel_err": sums_rel,
+                 "ms": time_ms(lambda: gn.gn_bwd_sums(x, dy, a, b, p, q,
+                                                      act)),
+                 "plain_ms": time_ms(lambda: gn.gn_bwd_sums_plain(
+                     x, dy, a, b, p, q, act)),
+                 "bound_ms": bound(xb + dyb + 6 * vec,
+                                   (n_ops_g + 5) * elems)[0]},
+        "dx": {"max_abs_err": dx_err.max().item(),
+               "ms": time_ms(lambda: gn.gn_bwd_dx(x, dy, a, b, c2, c3, act)),
+               "plain_ms": time_ms(lambda: gn.gn_bwd_dx_plain(
+                   x, dy, a, b, c2, c3, act)),
+               "bound_ms": bound(2 * xb + dyb + 4 * vec,
+                                 (n_ops_g + 4) * elems)[0]},
+        "backward": {
+            "dscale_dbias_max_rel_err": fn_rel,
+            "ms": time_ms(lambda: torch.autograd.grad(y, ins, dy,
+                                                      retain_graph=True)),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                yl, [xl, wl, bl], dy, retain_graph=True)),
+            "bound_ms": bound(2 * xb + dyb, (n_ops_g + 9) * elems)[0]},
+        "fwd_bwd": {"ms": time_ms(ours_fwd_bwd),
+                    "library_ms": time_ms(lib_fwd_bwd)},
+    }
+    log("gn_bwd", json.dumps(row))
+    if sums_rel > 1e-5 or not dx_ok or not fn_dx_ok or fn_rel > 1e-5:
+        raise AssertionError(
+            f"group norm backward disagrees at {row['shape']}: sums rel "
+            f"{sums_rel}, dx ok {dx_ok}, Function dx ok {fn_dx_ok}, "
+            f"dscale/dbias rel {fn_rel}")
+    return row
+
+
+def train_slice(per_step_launches, recon_gn_calls):
+    """`cli.train_favae` at expe5 B=16 with the counts zeroed just before;
+    the launches must equal what the census implies."""
+    import torch
+    from favae_tpu_torch.cli import train_favae
+    from favae_tpu_torch.ops import gn, vq
+    for counts in (vq.LAUNCHES, gn.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_favae.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**vq.LAUNCHES, **gn.LAUNCHES}
+    hist, val = out["history"], out["val"]
+    steps_on = sum(h["disc_on"] for h in hist)
+    steps_off = len(hist) - steps_on
+    val_batches = sum(v["images"] for v in val) // 16
+    expect = {k: steps_on * per_step_launches[True][k]
+              + steps_off * per_step_launches[False][k]
+              for k in launches}
+    expect["vq_nearest"] += val_batches
+    expect["gn_stats"] += val_batches * recon_gn_calls
+    expect["gn_apply"] += val_batches * recon_gn_calls
+
+    def steady(disc_on):  # all but the first two steps of the epoch
+        ms = [h["step_ms"] for h in hist if h["disc_on"] == disc_on][2:]
+        return statistics.median(ms)
+
+    losses = sorted({k for h in hist for k in h
+                     if k.startswith("loss") or k == "weight_d"})
+    finite = all(math.isfinite(h[k]) for h in hist for k in losses if k in h)
+    res = {
+        "steps_disc_off": steps_off, "steps_disc_on": steps_on,
+        "val_batches": val_batches, "launches": launches,
+        "expected_launches": expect,
+        "step_ms_disc_off": steady(False), "step_ms_disc_on": steady(True),
+        "imgs_per_s_disc_off": 16e3 / steady(False),
+        "imgs_per_s_disc_on": 16e3 / steady(True),
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "wall_s_incl_model_build": wall,
+        "first_step": {k: hist[0][k] for k in losses if k in hist[0]},
+        "last_step": {k: hist[-1][k] for k in losses if k in hist[-1]},
+        "weight_d_range": [min(h["weight_d"] for h in hist if h["disc_on"]),
+                           max(h["weight_d"] for h in hist if h["disc_on"])],
+        "val": val, "all_losses_finite": finite}
+    log("train", json.dumps(res))
+    if not finite:
+        raise AssertionError("non-finite training losses")
+    if launches != expect or not all(launches.values()):
+        raise AssertionError(f"train slice launched {launches}, the census "
+                             f"implies {expect}")
+    return res
+
+
+def train_cross_check():
+    """One disc-on, ffl-on step at expe5 width, 64 px, B=2, from one state:
+    on the card in f32 (TF32 off) and in bf16, and on the CPU in f32 through
+    the plain versions."""
+    import torch
+    from favae_tpu_torch.config import (TrainConfig, celebahq_expe5,
+                                        celebahq_expe5_losses)
+    from favae_tpu_torch.data.pipeline import SyntheticDataset
+    from favae_tpu_torch.models.vqgan import build_model
+    from favae_tpu_torch.train.favae_state import FavaeTrainState
+    from favae_tpu_torch.train.favae_step import make_train_step
+    ds = SyntheticDataset(64, size=2, seed=3)
+    x = torch.from_numpy(np.stack([ds.get(i) for i in range(2)]))
+    tc = TrainConfig(batch_size=2)
+    lr = tc.base_lr * tc.batch_size
+    runs = {}
+    sd = lpips_sd = None
+    for name, dtype, device in (("cpu_f32", "float32", "cpu"),
+                                ("card_f32", "float32", "cuda"),
+                                ("card_bf16", "bfloat16", "cuda")):
+        cfg = dataclasses.replace(celebahq_expe5(), compute_dtype=dtype)
+        lc = dataclasses.replace(celebahq_expe5_losses(),
+                                 spectral_dtype=dtype)
+        model = build_model(cfg, device, gaussian_kernel=lc.gaussian_kernel,
+                            dsl_init_sigma=lc.dsl_init_sigma)
+        if sd is None:
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(sd)
+        state = FavaeTrainState.create(cfg, lc, tc, lr, model=model,
+                                       lpips_state_dict=lpips_sd)
+        if lpips_sd is None:
+            lpips_sd = {k: v.clone() for k, v in
+                        state.lpips.state_dict().items()}
+        step = make_train_step(cfg, lc, tc, disc_on=True, ffl_on=True)
+        t0 = time.perf_counter()
+        state, m = step(state, x.to(device))
+        runs[name] = {
+            "metrics": {k: float(v) for k, v in m.items() if v.dim() == 0},
+            "state": {k: v.detach().float().cpu()
+                      for k, v in state.model.state_dict().items()},
+            "s": time.perf_counter() - t0}
+    ref = runs["cpu_f32"]
+    out = {"lr": lr, "cpu_step_s": ref["s"]}
+    for name in ("card_f32", "card_bf16"):
+        run = runs[name]
+        rel = {k: abs(v - ref["metrics"][k]) / max(abs(ref["metrics"][k]),
+                                                   1e-12)
+               for k, v in run["metrics"].items()}
+        out[name] = {"loss_rel_err": rel,
+                     "finite": all(math.isfinite(v)
+                                   for v in run["metrics"].values())}
+    state_err, param_err = {}, []
+    for k, v in runs["card_f32"]["state"].items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        r = ref["state"][k]
+        err = (v - r).abs()
+        if k.startswith("quantizer.") or "running_" in k:
+            # relative to the tensor's largest entry
+            state_err[k] = err.max().item() / max(r.abs().max().item(), 1e-30)
+        else:
+            param_err.append(err.flatten() / lr)
+    param_err = torch.cat(param_err)
+    worst = max(state_err, key=state_err.get)
+    out["card_f32"].update(
+        state_max_rel_err=state_err[worst], state_worst=worst,
+        param_max_err_lr=param_err.max().item(),
+        param_mean_err_lr=param_err.mean().item())
+    out["metrics"] = {n: runs[n]["metrics"] for n in runs}
+    f32, lim = out["card_f32"], TRAIN_XCHECK
+    bf16_out = [k for k, v in runs["card_bf16"]["metrics"].items()
+                if (k.startswith("loss") or k == "weight_d")
+                and abs(v - ref["metrics"][k]) > max(
+                    BF16_BAND["rel"] * abs(ref["metrics"][k]),
+                    BF16_BAND["abs"])]
+    out["card_bf16"]["outside_band"] = bf16_out
+    log("train-cross-check", json.dumps(out))
+    if not (f32["finite"] and out["card_bf16"]["finite"]
+            and max(f32["loss_rel_err"].values()) <= lim["loss_rel"]
+            and f32["state_max_rel_err"] <= lim["state_rel"]
+            and f32["param_max_err_lr"] <= lim["param_max_lr"]
+            and f32["param_mean_err_lr"] <= lim["param_mean_lr"]
+            and not bf16_out):
+        raise AssertionError(f"train cross-check out of bounds "
+                             f"{TRAIN_XCHECK}, bf16 band {BF16_BAND}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -316,10 +670,12 @@ def main():
                            f"this checkout {ROOT}")
     from favae_tpu_torch import _build
     from favae_tpu_torch.cli import eval_favae
-    from favae_tpu_torch.config import celebahq_expe5
+    from favae_tpu_torch.config import (TrainConfig, celebahq_expe5,
+                                        celebahq_expe5_losses)
     from favae_tpu_torch.data.pipeline import SyntheticDataset
     from favae_tpu_torch.models.vqgan import build_model
     from favae_tpu_torch.ops import gn, vq
+    from favae_tpu_torch.train.favae_state import FavaeTrainState
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -336,7 +692,7 @@ def main():
     for stem in libs:
         log(_build.build_log(stem).strip())
 
-    # phase 3: kernels at the shapes expe5 reconstruction gives them
+    # phase 3: kernels at the shapes expe5 gives them
     cfg = celebahq_expe5()
     model = build_model(cfg, "cuda", seed=0)
     ds = SyntheticDataset(256, size=64)
@@ -351,7 +707,24 @@ def main():
                check_vq(4096, 16384, 256, "cosine", 3)]
     gn_rows = [check_gn(key, i) for i, key in enumerate(census)]
 
-    # phase 4: the slice through its entry point
+    loss_cfg, train_cfg = celebahq_expe5_losses(), TrainConfig(batch_size=16)
+    state = FavaeTrainState.create(
+        cfg, loss_cfg, train_cfg, train_cfg.base_lr * 16, "cuda")
+    t0 = time.perf_counter()
+    bwd_census, step_launches = train_census(
+        state, cfg, loss_cfg, train_cfg, x16)
+    del state
+    log("train gn census " + json.dumps({
+        "s_incl_compiles": time.perf_counter() - t0,
+        "backward_calls_per_step": sum(bwd_census.values()),
+        "backward_shapes": [list(k) + [v] for k, v in bwd_census.items()],
+        "launches_per_step": {"disc_on": step_launches[True],
+                              "disc_off": step_launches[False]}}))
+    bwd_rows = [check_gn_bwd(key, 100 + i)
+                for i, key in enumerate(bwd_census)]
+    torch.cuda.empty_cache()
+
+    # phase 4: the recon slice through its entry point
     for counts in (vq.LAUNCHES, gn.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -360,14 +733,14 @@ def main():
     metrics = eval_favae.main(SLICE_ARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**vq.LAUNCHES, **gn.LAUNCHES}
+    recon_launches = {**vq.LAUNCHES, **gn.LAUNCHES}
     batches = len(metrics["batch_ms"])
     gn_calls = sum(census.values())
     steady = statistics.median(metrics["batch_ms"][1:])
     slice_out = {
         "metrics": {k: metrics[k] for k in ("psnr", "l1", "codebook_usage",
                                             "images")},
-        "launches": launches, "batches": batches,
+        "launches": recon_launches, "batches": batches,
         "gn_calls_per_batch": gn_calls, "batch_ms": metrics["batch_ms"],
         "steady_ms_per_batch": steady, "imgs_per_s": 16e3 / steady,
         "wall_s_incl_model_build": wall,
@@ -375,38 +748,55 @@ def main():
     log("slice", json.dumps(slice_out))
     if not all(math.isfinite(metrics[k]) for k in ("psnr", "l1")):
         raise AssertionError("non-finite reconstruction metrics")
-    if metrics["images"] != 64 or launches["vq_nearest"] != batches:
-        raise AssertionError(f"vq_nearest launched {launches['vq_nearest']} "
-                             f"times over {batches} batches")
-    if not launches["gn_stats"] == launches["gn_apply"] == batches * gn_calls:
-        raise AssertionError(f"GroupNorm kernels launched {launches} times, "
-                             f"expected {batches * gn_calls} each")
+    if metrics["images"] != 64 or recon_launches["vq_nearest"] != batches:
+        raise AssertionError(f"vq_nearest launched "
+                             f"{recon_launches['vq_nearest']} times over "
+                             f"{batches} batches")
+    if not recon_launches["gn_stats"] == recon_launches["gn_apply"] \
+            == batches * gn_calls:
+        raise AssertionError(f"GroupNorm kernels launched {recon_launches} "
+                             f"times, expected {batches * gn_calls} each")
+    if any(recon_launches[k] for k in ("gn_bwd_sums", "gn_bwd_dx")):
+        raise AssertionError("the reconstruction launched backward kernels")
 
     with torch.inference_mode():
         recon_ms = time_ms(lambda: model.reconstruct(x16), iters=10)
     log("recon", json.dumps({"device_ms_per_batch": recon_ms,
                              "imgs_per_s": 16e3 / recon_ms}))
 
-    # phase 5: cross-check against the CPU in f32 through the plain versions
+    # phase 5: the train slice through its entry point
+    train = train_slice(step_launches, gn_calls)
+    torch.cuda.empty_cache()
+
+    # phase 6: cross-checks against the CPU in f32 through the plain versions
     x2 = x16[:2].cpu()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    state = model.state_dict()
+    sd = model.state_dict()
     cpu_model = build_model(cfg32, "cpu")
-    cpu_model.load_state_dict(state)
+    cpu_model.load_state_dict(sd)
     t0 = time.perf_counter()
     ref = cpu_reference(cpu_model, x2)
     log(f"cpu f32 reconstruction of 2 images: {time.perf_counter() - t0:.1f} s")
     gpu32 = build_model(cfg32, "cuda")
-    gpu32.load_state_dict(state)
+    gpu32.load_state_dict(sd)
     cross_check("bf16", model, x2, ref)
     cross_check("f32", gpu32, x2, ref)
+    del cpu_model, gpu32
+    train_cross_check()
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
-    gn_total = {f: per_batch(gn_rows, census, "group_norm_act", f)
+    gn_total = {f: weighted(gn_rows, census, "group_norm_act", f)
                 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(json.dumps({"kernels": kernel_rows(vq_rows[0], gn_rows, census,
-                                           launches),
-                    "group_norm_act_per_batch": gn_total}))
+    bwd_total = {f: weighted(bwd_rows, bwd_census, "backward", f)
+                 for f in ("ms", "library_ms", "bound_ms")}
+    bwd_total.update({f"fwd_bwd_{f}": weighted(bwd_rows, bwd_census,
+                                               "fwd_bwd", f)
+                      for f in ("ms", "library_ms")})
+    log(json.dumps({"kernels": kernel_rows(
+        vq_rows[0], gn_rows, census, bwd_rows, bwd_census,
+        train["launches"], recon_launches),
+        "group_norm_act_per_batch": gn_total,
+        "group_norm_act_backward_per_train_step": bwd_total}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,6 @@ runs. `--trace` also writes a Chrome trace.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import time
 
@@ -22,24 +21,6 @@ import numpy as np
 import torch
 
 BATCH, RESOLUTION = 16, 256  # eval_favae's default batch, expe5's images
-
-# kernel-name fragments -> group; the first match wins
-_GROUPS = (
-    ("vq_nearest (CUDA)", ("vq_argmax",)),
-    ("group norm (Triton)", ("_stats_kernel", "_apply_kernel")),
-    ("conv / matmul", ("conv", "gemm", "xmma", "cutlass", "sm90_", "cudnn",
-                       "implicit", "nchwToNhwc", "nhwcToNchw")),
-    ("reduce", ("reduce",)),
-    ("elementwise / copy", ("elementwise", "vectorized", "copy", "Memcpy",
-                            "Memset", "cat", "index", "upsample")),
-)
-
-
-def _group(name: str) -> str:
-    for group, frags in _GROUPS:
-        if any(f in name for f in frags):
-            return group
-    return "other"
 
 
 def main(argv=None):
@@ -52,6 +33,7 @@ def main(argv=None):
     from favae_tpu_torch.config import celebahq_expe5
     from favae_tpu_torch.data.pipeline import SyntheticDataset
     from favae_tpu_torch.models.vqgan import build_model
+    from favae_tpu_torch.profiling import summarize
 
     device = resolve_device("cuda")
     model = build_model(celebahq_expe5(), device)
@@ -69,34 +51,13 @@ def main(argv=None):
         for _ in range(args.steps):
             model.reconstruct(x)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    by_kernel = collections.Counter()
-    calls = collections.Counter()
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.name] += evt.device_time_total / 1e3 / args.steps
-            calls[evt.name] += 1
-    busy = sum(by_kernel.values())
-    if busy == 0:
-        raise RuntimeError("the profiler saw no device time")
-    groups = collections.Counter()
-    for name, ms in by_kernel.items():
-        groups[_group(name)] += ms
-    out = {
-        "device": torch.cuda.get_device_name(0),
-        "preset": "celebahq_expe5", "batch_size": BATCH,
-        "resolution": RESOLUTION, "steps": args.steps,
-        "wall_ms_per_batch": wall_ms, "device_busy_ms_per_batch": busy,
-        "device_busy_share": busy / wall_ms,
-        "device_ops_per_batch": sum(calls.values()) / args.steps,
-        "groups_ms": dict(groups.most_common()),
-        "top_kernels": [{"name": name[:160], "ms": ms,
-                         "calls_per_batch": calls[name] / args.steps}
-                        for name, ms in by_kernel.most_common(12)],
-    }
+    out = {"device": torch.cuda.get_device_name(0),
+           "preset": "celebahq_expe5", "batch_size": BATCH,
+           "resolution": RESOLUTION, **summarize(prof, wall_ms, args.steps)}
     print(json.dumps(out))
     return out
 

@@ -5,7 +5,7 @@ imports nothing of the JAX package. Semantics are the reference's
 (datasets/general_dataloader.py): Resize((r, r)) -> scale to [0, 1] ->
 normalise with mean/std 0.5, giving HWC float32 pixels in [-1, 1];
 unreadable images fall through to the next index. Batches are NHWC numpy
-arrays, decoded in a thread pool.
+arrays, decoded in a thread pool, optionally shuffled per epoch.
 """
 
 from __future__ import annotations
@@ -88,27 +88,43 @@ class SyntheticDataset:
 
 
 class DataLoader:
-    """Full batches of a dataset in order (a last partial batch is dropped,
-    as the JAX package's eval loader does), as NHWC numpy arrays decoded a
-    few batches ahead by a thread pool."""
+    """Full batches of a dataset (a last partial batch is dropped), as NHWC
+    numpy arrays decoded a few batches ahead by a thread pool. With
+    `shuffle`, each epoch visits the samples in a permutation seeded by
+    `seed + epoch` (`set_epoch`), as the JAX package's loader does
+    (favae_tpu/data/pipeline.py:158-220); without, in order."""
 
     PREFETCH = 2  # batches decoded ahead of the consumer
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 8):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 8,
+                 shuffle: bool = False, seed: int = 0):
         self.ds = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
 
     def __len__(self):
         return len(self.ds) // self.batch_size
 
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
+
     def __iter__(self) -> Iterator[np.ndarray]:
         n_batches = len(self)
+        idx = self._indices()
 
         def fetch(b):
             lo = b * self.batch_size
-            return np.stack([self.ds.get(i)
-                             for i in range(lo, lo + self.batch_size)])
+            return np.stack([self.ds.get(int(i))
+                             for i in idx[lo:lo + self.batch_size]])
 
         with ThreadPoolExecutor(self.num_workers) as pool:
             pending = [pool.submit(fetch, b)

@@ -9,7 +9,9 @@ Parameter names follow the reference's torch state_dict
 (favae_tpu/utils/torch_export.py:47-84): a ResnetBlock is the reference's
 `block` Sequential with the norms at 0 and 3 and the convs at 2 and 6, an
 attention block packs q/k/v into MultiheadAttention's `in_proj_weight`.
-Dropout is a no-op: this is the inference path.
+Dropout is `F.dropout` under `self.training`, at the reference's places
+(the ResnetBlock Sequential's index 5, the transformer layer's three); the
+published presets set it to 0.
 """
 
 from __future__ import annotations
@@ -45,15 +47,17 @@ class Conv2d(nn.Conv2d):
     """nn.Conv2d computing in `compute_dtype` (params stay f32)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, compute_dtype=torch.bfloat16):
-        super().__init__(cin, cout, kernel, stride=stride, padding=padding)
+                 padding: int = 0, compute_dtype=torch.bfloat16,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding,
+                         bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
         dt = self.compute_dtype
         w = self.weight.to(dt, memory_format=torch.channels_last)
-        return F.conv2d(x.to(dt), w, self.bias.to(dt), self.stride,
-                        self.padding)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), w, b, self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -112,28 +116,29 @@ class Downsample(nn.Module):
 
 
 class _ResBody(nn.Module):
-    """GN-SiLU-conv x2 as the reference's `block` Sequential: indices 1, 4
-    and 5 (SiLU, SiLU, Dropout) are fused into the norms or are no-ops."""
+    """GN-SiLU-conv x2 as the reference's `block` Sequential: indices 1 and
+    4 (SiLU) are fused into the norms, 5 is the dropout."""
 
-    def __init__(self, cin: int, cout: int, num_groups: int, dtype):
+    def __init__(self, cin: int, cout: int, num_groups: int, dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.block = nn.ModuleList([
             GroupNormAct(cin, num_groups, "silu", dtype), nn.Identity(),
             conv3x3(cin, cout, dtype),
             GroupNormAct(cout, num_groups, "silu", dtype), nn.Identity(),
-            nn.Identity(), conv3x3(cout, cout, dtype)])
+            nn.Dropout(dropout), conv3x3(cout, cout, dtype)])
 
     def body(self, x):
         b = self.block
-        return b[6](b[3](b[2](b[0](x))))
+        return b[6](b[5](b[3](b[2](b[0](x)))))
 
 
 class ResnetBlock(_ResBody):
     """GN-SiLU-conv x2 with residual (reference: models/codec.py:34-57)."""
 
     def __init__(self, cin: int, cout: int, num_groups: int = 32,
-                 dtype=torch.bfloat16):
-        super().__init__(cin, cout, num_groups, dtype)
+                 dtype=torch.bfloat16, dropout: float = 0.0):
+        super().__init__(cin, cout, num_groups, dtype, dropout)
         self.shortcut = conv1x1(cin, cout, dtype) if cin != cout else None
 
     def forward(self, x):
@@ -148,8 +153,8 @@ class NonResnetBlock(_ResBody):
     models/codec.py:62-84; every FCM call site keeps cin == cout)."""
 
     def __init__(self, channels: int, num_groups: int = 32,
-                 dtype=torch.bfloat16):
-        super().__init__(channels, channels, num_groups, dtype)
+                 dtype=torch.bfloat16, dropout: float = 0.0):
+        super().__init__(channels, channels, num_groups, dtype, dropout)
 
     def forward(self, x):
         return self.body(x)
@@ -199,12 +204,14 @@ class AttnBlock(nn.Module):
 
 
 class _TransformerLayer(nn.Module):
-    """Parameters and eval forward of torch nn.TransformerEncoderLayer:
-    post-norm, ReLU, LayerNorms in f32."""
+    """Parameters and forward of torch nn.TransformerEncoderLayer: post-norm,
+    ReLU, LayerNorms in f32, dropout after attention, ReLU and linear2."""
 
-    def __init__(self, channels: int, num_heads: int, ffn_dim: int, dtype):
+    def __init__(self, channels: int, num_heads: int, ffn_dim: int, dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.p = dropout
         self.self_attn = _PackedAttention(channels, dtype)
         self.norm1 = nn.LayerNorm(channels, eps=1e-5)
         self.linear1 = Linear(channels, ffn_dim, dtype)
@@ -212,10 +219,13 @@ class _TransformerLayer(nn.Module):
         self.norm2 = nn.LayerNorm(channels, eps=1e-5)
 
     def forward(self, y):
-        sa = self.self_attn(y, self.num_heads)
+        sa = self._drop(self.self_attn(y, self.num_heads))
         y = self.norm1((y + sa).float())
-        ff = self.linear2(torch.relu(self.linear1(y)))
+        ff = self._drop(self.linear2(self._drop(torch.relu(self.linear1(y)))))
         return self.norm2((y + ff).float())
+
+    def _drop(self, t):
+        return F.dropout(t, self.p, self.training)
 
 
 class TransEncoderBlock(nn.Module):
@@ -224,10 +234,11 @@ class TransEncoderBlock(nn.Module):
     models/codec.py:108-122; 8 heads, ffn 2048)."""
 
     def __init__(self, channels: int, num_heads: int = 8, ffn_dim: int = 2048,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, dropout: float = 0.0):
         super().__init__()
         self.norm = GroupNormAct(channels, 32, None, dtype)
-        self.attn = _TransformerLayer(channels, num_heads, ffn_dim, dtype)
+        self.attn = _TransformerLayer(channels, num_heads, ffn_dim, dtype,
+                                      dropout)
 
     def forward(self, x):
         h, w = x.shape[2:]

@@ -10,6 +10,7 @@ plain version.
 import ast
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,6 +97,102 @@ def test_group_norm_act_plain_matches_pallas_and_reference(act):
         np.testing.assert_allclose(y, y_ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_act_grads_match_pallas(act):
+    """dx, dscale, dbias of the port's autograd.Function (plain backward on
+    the CPU) against jax.grad through the TPU kernels in interpret mode
+    (the oracle of tests/test_gn_pallas.py:53-70); f32, atol 1e-4 on
+    gradients of order 1 (sums over 64 pixels in different orders)."""
+    rng = np.random.RandomState(11)
+    x = (rng.randn(2, 8, 8, 128) * 2.0 + 0.5).astype(np.float32)
+    scale = rng.randn(128).astype(np.float32)
+    bias = rng.randn(128).astype(np.float32)
+    w = rng.randn(2, 8, 8, 128).astype(np.float32)
+
+    def loss(x, scale, bias):
+        y = _gn_act_pallas(x, scale, bias, 32, 1e-5, act,
+                           jnp.dtype(jnp.float32), True)
+        return jnp.sum(y * w)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    st = torch.from_numpy(scale).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    y = gn.group_norm_act(xt, st, bt, 32, act=act)
+    assert type(y.grad_fn).__name__ == "_GroupNormActBackward"
+    (y * torch.from_numpy(w).permute(0, 3, 1, 2)).sum().backward()
+    for ours, r, what in ((xt.grad.permute(0, 2, 3, 1), ref[0], "dx"),
+                          (st.grad, ref[1], "dscale"),
+                          (bt.grad, ref[2], "dbias")):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=0, err_msg=what)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_act_plain_backward_gradcheck(act):
+    """The plain forward and backward in float64 against finite
+    differences."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 3, 3, dtype=torch.float64, generator=g)
+    scale = torch.randn(8, dtype=torch.float64, generator=g)
+    bias = torch.randn(8, dtype=torch.float64, generator=g)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    scale.requires_grad_()
+    bias.requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x, s, b: gn.group_norm_act_plain(x, s, b, 4, act=act),
+        (x, scale, bias))
+
+
+def test_group_norm_act_backward_honours_needs_input_grad():
+    """Frozen affine parameters get no gradient; a frozen input gets no dx
+    but its scale and bias still do; bf16 in, f32 out gives a bf16 dx."""
+    x = torch.randn(1, 64, 4, 4)
+    scale, bias = torch.ones(64, requires_grad=True), torch.zeros(64)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    y = gn.group_norm_act(xb, scale, bias, 32, act="silu",
+                          out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    y.sum().backward()
+    assert xb.grad.dtype == torch.bfloat16 and scale.grad is not None
+    assert bias.grad is None
+    xf = x.clone()
+    sf, bf = torch.ones(64, requires_grad=True), torch.zeros(64,
+                                                           requires_grad=True)
+    gn.group_norm_act(xf, sf, bf, 32).sum().backward()
+    assert xf.grad is None and sf.grad.shape == (64,) and bf.grad.shape == (64,)
+
+
+def test_group_norm_act_copies_non_channels_last_gradients():
+    x = torch.randn(1, 64, 4, 4).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    y = gn.group_norm_act(x, torch.ones(64), torch.zeros(64), 32)
+    before = gn.DY_COPIES["not_channels_last"]
+    y.backward(torch.randn(1, 64, 4, 4))   # a contiguous NCHW gradient
+    assert gn.DY_COPIES["not_channels_last"] == before + 1
+
+
+def test_gn_backward_passes_match_autograd_of_plain_forward():
+    """gn_bwd_sums and gn_bwd_dx (CPU: their plain versions) composed by the
+    Function equal autograd through F.group_norm + SiLU in float64."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 64, 5, 5, dtype=torch.float64, generator=g)
+    scale = torch.randn(64, dtype=torch.float64, generator=g)
+    bias = torch.randn(64, dtype=torch.float64, generator=g)
+    dy = torch.randn(2, 64, 5, 5, dtype=torch.float64, generator=g)
+    ins = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    ref = torch.autograd.grad(
+        torch.nn.functional.silu(torch.nn.functional.group_norm(
+            ins[0], 16, ins[1], ins[2], 1e-5)), ins, dy)
+    ins = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    ours = torch.autograd.grad(gn.group_norm_act(*ins, 16, act="silu"),
+                               ins, dy)
+    for o, r in zip(ours, ref):
+        torch.testing.assert_close(o, r, atol=1e-10, rtol=1e-10)
+
+
 def test_group_norm_act_casts_after_silu():
     """SiLU runs in f32 before the cast to out_dtype, like the TPU kernel."""
     rng = np.random.RandomState(8)
@@ -123,6 +220,11 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         gn.group_norm_act(x, torch.ones(64, device="meta"),
                           torch.zeros(64, device="meta"), 32)
+    v = torch.empty(2, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gn.gn_bwd_sums(x, x, v, v, v, v, "silu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gn.gn_bwd_dx(x, x, v, v, v, v, None)
     with pytest.raises(ValueError, match="unsupported device"):
         vq.vq_nearest(torch.empty(8, 4, device="meta"),
                       torch.empty(16, 4, device="meta"))

@@ -152,8 +152,7 @@ def test_eval_cli_on_cpu():
     assert 0.0 < m["codebook_usage"] <= 4 / 1024
 
 
-@pytest.mark.parametrize("flag", ["--orbax_ckpt", "--lpips_ckpt",
-                                  "--inception_ckpt"])
+@pytest.mark.parametrize("flag", ["--orbax_ckpt", "--inception_ckpt"])
 def test_eval_cli_names_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         eval_favae.main(["--device", "cpu", flag, "x"])
