@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
    and a one-call PyTorch yardstick: the forward kernels at the
    reconstruction's shapes, the GroupNorm backward kernels at every shape a
    train step's backward gives them (a census of one step with the
-   discriminator and one without);
+   discriminator and one without); the three int8 kernels of CAT serving
+   at the shapes `cat_celebahq` gives them (`matmul_int8` at the four
+   projection shapes, `ffn_block_int8` at both widths, `decode_step_fused`
+   at gpt2_medium's full width and depth over 256 positions);
 4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
@@ -20,7 +23,13 @@ Phases (any failure exits non-zero):
    just after and held to what the census implies;
 6. cross-checks: the same weights reconstructing 2 images, and taking one
    train step on 2 images at 64 px, on the card (bf16, and f32 with TF32
-   off) and on the CPU in f32 through the plain versions.
+   off) and on the CPU in f32 through the plain versions;
+7. serve slice: `favae_tpu_torch.cli.generate` at cat_celebahq, 2 prompts x
+   2 images, seeded random weights, through its three engines (exact bf16,
+   `--quantized` on the whole-step kernel, `--quantized --gpt_name
+   gpt2_large` on the int8 FFN kernel), counts zeroed before and read
+   after each; then the same weights, text embeddings and gumbel noise
+   through each engine on the card and on the CPU at 2 layers.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. TF32 is off for matmuls and cuDNN.
 """
@@ -39,6 +48,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, at the 700 W limit
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 in the tensor cores, dense
 VQ_NEAR_TIE = 1e-5          # a chosen code may trail the best score by this
 SLICE_ARGS = ["--preset", "celebahq_expe5", "--synthetic_data",
               "--batch_size", "16", "--max_images", "64"]
@@ -102,9 +112,9 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -462,6 +472,224 @@ def check_gn_bwd(key, seed):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the int8 kernels of CAT serving
+# ---------------------------------------------------------------------------
+
+# A kernel and its plain version round at the same places and differ in the
+# order of their f32 sums, which can move a result across a bf16 rounding
+# boundary: outputs may differ by one bf16 rounding (2^-7 relative) of the
+# element, plus a small share of the output's largest magnitude for roundings
+# that flipped upstream (xn, h, q, p) and spread over a row.
+BF16_ULP = 2.0 ** -7
+INT8_SPREAD = {"matmul_int8": 1e-5, "ffn_int8": 2.0 ** -9,
+               "decode_step": 2.0 ** -7}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def close_to_plain(name, y, yp):
+    """(ok, max abs err, elements that differ) of a kernel's bf16 output
+    against its plain version's."""
+    y, yp = y.float(), yp.float()
+    err = (y - yp).abs()
+    tol = BF16_ULP * yp.abs() + INT8_SPREAD[name] * yp.abs().max()
+    return bool((err <= tol).all()), err.max().item(), int((err > 0).sum())
+
+
+def check_matmul_int8(m, k, n, seed):
+    import torch
+    from favae_tpu_torch.ops import int8_matmul as im
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().bfloat16()
+    w = torch.from_numpy((rng.randn(k, n) * 0.05).astype(np.float32)).cuda()
+    wq, scale = im.quantize_weight(w)
+    y = im.matmul_int8(x, wq, scale)
+    torch.cuda.synchronize()
+    yp = im.matmul_int8_plain(x, wq, scale)
+    ok, err, differ = close_to_plain("matmul_int8", y, yp)
+    again = im.matmul_int8(x, wq, scale)
+    wd = (wq.bfloat16() * scale.bfloat16())  # pre-dequantised, for the yardstick
+    row = {"shape": f"M={m} K={k} N={n}", "max_abs_err": err,
+           "elements_differ": differ, "out_max": yp.float().abs().max().item(),
+           "same_bits_twice": bool(torch.equal(y, again)),
+           "ms": time_ms(lambda: im.matmul_int8(x, wq, scale)),
+           "plain_ms": time_ms(lambda: im.matmul_int8_plain(x, wq, scale)),
+           "library_ms": time_ms(lambda: x @ wd)}
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(x, wq, scale, y), 2 * m * k * n, BF16_FLOP_PER_S)
+    log("matmul_int8", json.dumps(row))
+    if not ok or not row["same_bits_twice"]:
+        raise AssertionError(f"matmul_int8 {row['shape']}: max abs err {err} "
+                             "beyond one bf16 rounding, or bits changed "
+                             "between two runs")
+    return row
+
+
+def check_ffn_int8(rows, k, seed):
+    import torch
+    from favae_tpu_torch.ops import ffn_int8 as fi
+    rng = np.random.RandomState(seed)
+    f = 4 * k
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    x = t(rng.randn(rows, k)).bfloat16()
+    g_in, g_mid = t(1 + 0.1 * rng.randn(k)), t(1 + 0.1 * rng.randn(f))
+    prep = fi.prepare_ffn_weights(t(rng.randn(k, f) * 0.05), g_mid,
+                                  t(rng.randn(f, k) * 0.05))
+    y = fi.ffn_block_int8(x, g_in, prep)
+    torch.cuda.synchronize()
+    yp = fi.ffn_block_int8_plain(x, g_in, prep)
+    ok, err, differ = close_to_plain("ffn_int8", y, yp)
+    again = fi.ffn_block_int8(x, g_in, prep)
+    row = {"shape": f"rows={rows} K={k} F={f}", "max_abs_err": err,
+           "elements_differ": differ, "out_max": yp.float().abs().max().item(),
+           "same_bits_twice": bool(torch.equal(y, again)),
+           "ms": time_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
+           "plain_ms": time_ms(lambda: fi.ffn_block_int8_plain(x, g_in, prep)),
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(x, g_in, y, *prep.values()), 4 * rows * k * f, BF16_FLOP_PER_S)
+    log("ffn_int8", json.dumps(row))
+    if not ok or not row["same_bits_twice"]:
+        raise AssertionError(f"ffn_block_int8 {row['shape']}: max abs err "
+                             f"{err} beyond tolerance, or bits changed "
+                             "between two runs")
+    return row
+
+
+def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
+                      check_at=(0, 1, 128, 255)):
+    """The whole-step kernel at full width and depth with seeded random
+    weights: 256 positions in order on one cache; at `check_at` the plain
+    version takes the same inputs and a copy of the cache as it stood."""
+    import torch
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.models.gpt import GPT
+    from favae_tpu_torch.ops import decode_step_kernel as dk
+    cfg = getattr(C, gpt_name)(vocab_size=1024, n_cond_embed=768)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        gpt = GPT(cfg).cuda().eval()
+    with torch.inference_mode():
+        fused = dk.prepare_fused_decode(gpt, cfg)
+    n_layer, heads, dh, d = cfg.n_layer, cfg.n_head, cfg.dim_head, cfg.n_embed
+    seq = cfg.image_encoded_dim ** 2
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    cross_kv = t(n_layer, rows, m_cross, dh).bfloat16()
+    cross_bias = torch.zeros(rows, m_cross, device="cuda")
+    cross_bias[rows // 2:, 1:] = -1e9      # the null-text half of a CFG batch
+    cross_bias[0, 20:] = -1e9              # a short prompt
+    rel_all = t(seq, n_layer, heads, seq + 1)   # one bias row per position
+    rel_all[..., 0] = 0.0
+    xs = t(seq, rows, d).bfloat16()
+    caches = torch.zeros(n_layer, rows, seq, dh, device="cuda",
+                         dtype=torch.bfloat16)
+    checks, x_new = {}, None
+    with torch.inference_mode():
+        for pos in range(seq):
+            before = caches.clone() if pos in check_at else None
+            args = (cross_kv, cross_bias, rel_all[pos].contiguous(), fused,
+                    cfg)
+            x_new, out = dk.decode_step_fused(xs[pos], pos, caches, *args)
+            if pos == 0:
+                torch.cuda.synchronize()   # a fault in the first launch
+            if before is None:
+                continue
+            if out.data_ptr() != caches.data_ptr():
+                raise AssertionError("decode_step_fused returned a new cache")
+            ref = before.clone()
+            xp, _ = dk.decode_step_fused_plain(xs[pos], pos, ref, *args)
+            ok, err, differ = close_to_plain("decode_step", x_new, xp)
+            row_err = (caches[:, :, pos].float()
+                       - ref[:, :, pos].float()).abs().max().item()
+            # rows of deeper layers come from an x that already differs
+            row_ok = close_to_plain("decode_step", caches[:, :, pos],
+                                    ref[:, :, pos])[0]
+            keep = torch.ones(seq, dtype=torch.bool, device="cuda")
+            keep[pos] = False
+            untouched = bool(torch.equal(caches[:, :, keep], before[:, :, keep]))
+            checks[pos] = {"x_max_abs_err": err, "x_elements_differ": differ,
+                           "x_mean_abs_err": (x_new.float() - xp.float()
+                                              ).abs().mean().item(),
+                           "x_max": xp.float().abs().max().item(),
+                           "cache_row_max_abs_err": row_err,
+                           "other_cache_rows_untouched": untouched,
+                           "finite": bool(torch.isfinite(x_new.float()).all())}
+            if not (ok and row_ok and untouched and checks[pos]["finite"]):
+                raise AssertionError(f"decode_step_fused at pos {pos}: "
+                                     f"{checks[pos]}")
+        pos = seq - 1
+        args = (cross_kv, cross_bias, rel_all[pos].contiguous(), fused, cfg)
+        ms = time_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches, *args))
+        ms_first = time_ms(lambda: dk.decode_step_fused(xs[0], 0, caches,
+                                                        *args))
+        plain_ms = time_ms(lambda: dk.decode_step_fused_plain(
+            xs[pos], pos, caches, *args), iters=3, warmup=1)
+    weights = 2 * rows * sum(fused[n][0].numel() * n_layer for n in (
+        "wq_s", "wo_s", "wq_c", "wo_c", "w1q", "w2q", "wkv"))
+    attn = 4 * rows * heads * dh * n_layer * (seq + 1 + m_cross)
+    moved = (nbytes(xs[pos], x_new, cross_kv, cross_bias, rel_all[pos],
+                    *fused.values())
+             + nbytes(caches[:, :, :seq]))   # pos + 1 = seq rows: read, 1 written
+    row = {"shape": f"{gpt_name} L={n_layer} rows={rows} d={d} H={heads} "
+                    f"S={seq} M={m_cross} pos={pos}",
+           "checks": checks,
+           "max_abs_err": max(c["x_max_abs_err"] for c in checks.values()),
+           "ms": ms, "ms_at_pos_0": ms_first, "plain_ms": plain_ms,
+           "library_ms": None,
+           "weight_bytes": nbytes(*fused.values()),
+           "blocks_per_sm": dk.BLOCKS_PER_SM}
+    row["bound_ms"], row["bound_by"] = bound(moved, weights + attn,
+                                             BF16_FLOP_PER_S)
+    log("decode_step", json.dumps(row))
+    del gpt, fused
+    torch.cuda.empty_cache()
+    return row
+
+
+def int8_kernel_checks():
+    """matmul_int8 at the four CAT projection shapes, ffn_block_int8 at
+    both widths, decode_step_fused at gpt2_medium; returns the rows that go
+    into the `kernels` line."""
+    mm = [check_matmul_int8(8, k, n, 20 + i) for i, (k, n) in enumerate(
+        [(1536, 1024), (1024, 1536), (1536, 6144), (6144, 1536)])]
+    ffn = [check_ffn_int8(8, 1536, 30), check_ffn_int8(8, 1280, 31)]
+    return {"matmul_int8": mm, "ffn_int8": ffn,
+            "decode_step": check_decode_step()}
+
+
+def int8_kernel_rows(checks, launches):
+    """Entries of the `kernels` line for the three int8 kernels: numbers of
+    the shape the serve slice runs most (matmul_int8, which no sampler
+    calls, at the fc1 shape), launches from the serve slice's three runs."""
+    rows = []
+    for name, check, source, replaces in (
+            ("matmul_int8", checks["matmul_int8"][2], "int8_matmul.cu",
+             "favae_tpu/ops/int8_matmul.py:47"),
+            ("ffn_int8", checks["ffn_int8"][1], "ffn_int8.cu",
+             "favae_tpu/ops/ffn_int8.py:90"),
+            ("decode_step", checks["decode_step"], "decode_step.cu",
+             "favae_tpu/ops/decode_step_kernel.py:324")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"favae_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[name],
+            # as in the JAX package, no sampler calls matmul_int8
+            "on_main_path": name != "matmul_int8", "shape": check["shape"],
+            **{f: check[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}})
+    return rows
+
+
 def train_slice(per_step_launches, recon_gn_calls):
     """`cli.train_favae` at expe5 B=16 with the counts zeroed just before;
     the launches must equal what the census implies."""
@@ -655,6 +883,163 @@ def cross_check(name, model_gpu, x, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serve slice (CAT text-to-image) and its cross-check
+# ---------------------------------------------------------------------------
+
+SERVE_ARGS = ["--prompt", "a smiling woman with glasses",
+              "--prompt", "an old man with a beard", "--n", "2",
+              "--top_k", "500", "--top_p", "0.95", "--cond_scale", "3",
+              "--out", str(ROOT / "output" / "chip_smoke_serve.npz")]
+# (name, extra flags, expected launches of decode_step and ffn_int8)
+SERVE_RUNS = (("exact", [], 0, 0),
+              ("fused", ["--quantized"], 256, 0),
+              ("ffn_int8", ["--quantized", "--gpt_name", "gpt2_large"],
+               0, 36 * 256),
+              # the yardstick of the FFN-only route: the same model, exact
+              ("exact_large", ["--gpt_name", "gpt2_large"], 0, 0))
+# serve cross-check bounds, card against CPU at gpt2_medium width, 2 layers,
+# 4x4 tokens, on CFG logits of up to 7.7. f32 (TF32 off): the two differ by
+# summation order only (5.7e-6 measured on an H100). bf16 routes: both sides
+# round at the same places, so logits differ by the bf16 roundings that
+# flipped (0.030 fused, 0.053 FFN-only measured); free-running tokens must
+# agree at 0.9, the bound the JAX package's own test of its fused kernel
+# uses (0.98 and 1.0 measured).
+SERVE_XCHECK = {"f32_logits": 1e-4, "bf16_logits": 0.15, "agreement": 0.9}
+
+
+def int8_counts():
+    from favae_tpu_torch.ops import decode_step_kernel, ffn_int8, int8_matmul
+    return (decode_step_kernel.LAUNCHES, ffn_int8.LAUNCHES,
+            int8_matmul.LAUNCHES)
+
+
+def serve_slice():
+    """`cli.generate` at cat_celebahq through its three engines, counts
+    zeroed just before each run and read just after."""
+    import torch
+    from favae_tpu_torch.cli import generate
+    from favae_tpu_torch.models.clip_text import word_pattern
+    from favae_tpu_torch.ops import gn, vq
+    log(f"tokenizer word pattern compiled with: {word_pattern()[1]}")
+    (ROOT / "output").mkdir(exist_ok=True)
+    runs, launches = {}, {}
+    for name, extra, want_step, want_ffn in SERVE_RUNS:
+        for counts in (vq.LAUNCHES, gn.LAUNCHES, *int8_counts()):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = generate.main(SERVE_ARGS + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for counts in (gn.LAUNCHES, *int8_counts())
+               for k, v in counts.items()}
+        imgs, toks = out["images"], out["tokens"]
+        res = {"route": out["route"], "launches": got,
+               **{k: out[k] for k in (
+                   "clip_ms", "prepare_ms", "first_token_ms", "ms_per_token",
+                   "tokens_per_s", "images_per_s", "decode_ms")},
+               "token_steps_per_s": 1e3 / out["ms_per_token"],
+               "wall_s_incl_model_build": wall,
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2 ** 30,
+               "images_shape": list(imgs.shape), "tokens_shape": list(toks.shape),
+               "tokens_min_max": [int(toks.min()), int(toks.max())],
+               "finite": bool(np.isfinite(imgs).all())}
+        log("serve", name, json.dumps(res))
+        if not (out["route"] == name.split("_large")[0] and imgs.shape == (4, 256, 256, 3)
+                and res["finite"] and toks.shape == (4, 16, 16)
+                and 0 <= toks.min() and toks.max() < 1024):
+            raise AssertionError(f"serve {name}: bad images or tokens")
+        if (got["decode_step"], got["ffn_int8"], got["matmul_int8"]) != (
+                want_step, want_ffn, 0):
+            raise AssertionError(
+                f"serve {name}: launches {got}, expected decode_step "
+                f"{want_step}, ffn_int8 {want_ffn}, matmul_int8 0")
+        if not (got["gn_stats"] and got["gn_stats"] == got["gn_apply"]):
+            raise AssertionError(f"serve {name}: the FA-VAE decode launched "
+                                 f"GroupNorm kernels {got}")
+        runs[name], launches[name] = res, got
+    return runs, {"decode_step": launches["fused"]["decode_step"],
+                  "ffn_int8": launches["ffn_int8"]["ffn_int8"],
+                  "matmul_int8": 0}
+
+
+def serve_cross_check():
+    """gpt2_medium width, 2 layers, 4x4 tokens, B=4: the same weights, text
+    embeddings and injected gumbel noise on the card and on the CPU. (a) the
+    exact sampler in f32; (b) the fused route, kernel against plain version;
+    (c) the FFN-only route. Each: CFG logits under the CPU's tokens as
+    forced context, and free-running token agreement."""
+    import torch
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.models.decode_engine import (quantize_decode_params,
+                                                      sample_tokens)
+    from favae_tpu_torch.models.gpt import GPT
+    from favae_tpu_torch.ops.decode_step_kernel import prepare_fused_decode
+    cfg = dataclasses.replace(
+        C.gpt2_medium(vocab_size=1024, n_cond_embed=768), n_layer=2,
+        image_encoded_dim=4)
+    rng = np.random.RandomState(5)
+    b, seq = 4, 16
+    embeds = torch.from_numpy(rng.randn(b, 77, 768).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(b, 77) > 0.3)
+    noise = torch.from_numpy(rng.gumbel(size=(seq, b, 1024)).astype(np.float32))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        gpt_cpu = GPT(cfg, dtype=torch.float32).eval()
+    sd = gpt_cpu.state_dict()
+    out = {}
+
+    def both(name, dtype, prepare, bound):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            gpt = GPT(cfg, dtype=dtype).eval()
+            gpt.load_state_dict(sd)
+            gpt.to(dev)
+            kw = dict(top_k=500, top_p=0.95, cond_scale=3.0, dtype=dtype,
+                      gumbel_noise=noise.to(dev), return_logits=True,
+                      **prepare(gpt))
+            args = (cfg, gpt, embeds.to(dev), mask.to(dev))
+            free, _ = sample_tokens(*args, **kw)
+            forced = res["cpu"]["free"] if dev == "cuda" else free
+            _, logits = sample_tokens(
+                *args, forced_tokens=forced.reshape(b, -1).to(dev), **kw)
+            res[dev] = {"free": free.cpu(), "logits": logits.float().cpu()}
+        err = (res["cuda"]["logits"] - res["cpu"]["logits"]).abs().max().item()
+        agree = (res["cuda"]["free"] == res["cpu"]["free"]).float().mean().item()
+        out[name] = {"forced_logits_max_abs_err": err,
+                     "logits_max": res["cpu"]["logits"].abs().max().item(),
+                     "free_token_agreement": agree}
+        return err <= bound and agree >= SERVE_XCHECK["agreement"], res
+
+    ok_a, res_a = both("exact_f32", torch.float32, lambda g: {},
+                       SERVE_XCHECK["f32_logits"])
+    gpt32 = GPT(cfg, dtype=torch.float32).eval()
+    gpt32.load_state_dict(sd)
+    gpt32.cuda()
+    sampled = gpt32.sample(embeds.cuda(), mask.cuda(), top_k=500, top_p=0.95,
+                           cond_scale=3.0, gumbel_noise=noise.cuda()).cpu()
+    out["exact_f32"]["gpt_sample_equals_engine_on_card"] = bool(
+        torch.equal(sampled, res_a["cuda"]["free"]))
+    out["exact_f32"]["tokens_equal_cpu"] = bool(
+        torch.equal(res_a["cuda"]["free"], res_a["cpu"]["free"]))
+    ok_b, _ = both("fused_bf16", torch.bfloat16,
+                   lambda g: {"fused": prepare_fused_decode(g, cfg)},
+                   SERVE_XCHECK["bf16_logits"])
+    ok_c, _ = both("ffn_int8_bf16", torch.bfloat16,
+                   lambda g: {"qparams": quantize_decode_params(g)},
+                   SERVE_XCHECK["bf16_logits"])
+    log("serve-cross-check", json.dumps(out))
+    if not (ok_a and ok_b and ok_c
+            and out["exact_f32"]["gpt_sample_equals_engine_on_card"]
+            and out["exact_f32"]["tokens_equal_cpu"]):
+        raise AssertionError(f"serve cross-check out of bounds {SERVE_XCHECK}")
+    return out
+
+
 def main():
     smi = nvidia_smi()
     log(smi)
@@ -723,6 +1108,7 @@ def main():
     bwd_rows = [check_gn_bwd(key, 100 + i)
                 for i, key in enumerate(bwd_census)]
     torch.cuda.empty_cache()
+    int8_checks = int8_kernel_checks()
 
     # phase 4: the recon slice through its entry point
     for counts in (vq.LAUNCHES, gn.LAUNCHES):
@@ -783,6 +1169,13 @@ def main():
     cross_check("f32", gpu32, x2, ref)
     del cpu_model, gpu32
     train_cross_check()
+    del model
+    torch.cuda.empty_cache()
+
+    # phase 7: the serve slice through its entry point, and its cross-check
+    _, serve_launches = serve_slice()
+    torch.cuda.empty_cache()
+    serve_cross_check()
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
     gn_total = {f: weighted(gn_rows, census, "group_norm_act", f)
@@ -794,7 +1187,8 @@ def main():
                       for f in ("ms", "library_ms")})
     log(json.dumps({"kernels": kernel_rows(
         vq_rows[0], gn_rows, census, bwd_rows, bwd_census,
-        train["launches"], recon_launches),
+        train["launches"], recon_launches)
+        + int8_kernel_rows(int8_checks, serve_launches),
         "group_norm_act_per_batch": gn_total,
         "group_norm_act_backward_per_train_step": bwd_total}))
     log(smi)

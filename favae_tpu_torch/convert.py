@@ -230,3 +230,103 @@ def read_lpips_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         sd = sd["model"]
     return {k: v for k, v in sd.items()
             if not k.startswith("scaling_layer.")}
+
+
+# ---------------------------------------------------------------------------
+# CAT: GPT and CLIP text tower
+# ---------------------------------------------------------------------------
+
+def gpt_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The flax GPT tree as numpy arrays (the scan-stacked (L, ...) leaves
+    under `blocks`) -> the port's `GPT.state_dict()`, which is the
+    reference's layout without its dead entries
+    (favae_tpu/utils/torch_export.py:218-273)."""
+    sd: Dict[str, np.ndarray] = {
+        "tok_emb.weight": np.asarray(params["tok_emb"]["embedding"]),
+        "axial_height_pos": np.asarray(params["axial_height_pos"]),
+        "axial_width_pos": np.asarray(params["axial_width_pos"]),
+        "start_token": np.asarray(params["start_token"]),
+        "init_norm.gamma": np.asarray(params["init_norm"]["ln"]["scale"]),
+        "final_norm.gamma": np.asarray(params["final_norm"]["ln"]["scale"]),
+    }
+    blocks = params["blocks"]
+    n_layer = np.asarray(blocks["self_attn"]["null_kv"]).shape[0]
+    for i in range(n_layer):
+        for j, name in ((0, "self_attn"), (1, "cross_attn")):
+            p, pre = blocks[name], f"blocks.{i}.{j}"
+            sd[f"{pre}.norm.gamma"] = np.asarray(p["norm"]["ln"]["scale"])[i]
+            for lin in ("to_q", "to_kv", "to_out"):
+                sd[f"{pre}.{lin}.1.weight"] = np.asarray(
+                    p[lin]["kernel"])[i].T
+            sd[f"{pre}.null_kv"] = np.asarray(p["null_kv"])[i]
+            sd[f"{pre}.to_out.2.gamma"] = np.asarray(
+                p["out_norm"]["ln"]["scale"])[i]
+            if "rel_pos_bias" in p:
+                sd[f"{pre}.rel_pos_bias.pos_bias.weight"] = np.asarray(
+                    p["rel_pos_bias"]["pos_bias"]["embedding"])[i]
+        ff, pre = blocks["ff"], f"blocks.{i}.2"
+        sd[f"{pre}.0.gamma"] = np.asarray(ff["norm_in"]["ln"]["scale"])[i]
+        sd[f"{pre}.1.weight"] = np.asarray(ff["fc1"]["kernel"])[i].T
+        sd[f"{pre}.3.gamma"] = np.asarray(ff["norm_mid"]["ln"]["scale"])[i]
+        sd[f"{pre}.4.weight"] = np.asarray(ff["fc2"]["kernel"])[i].T
+    return _tensors(sd)
+
+
+def clip_text_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The flax CLIPTextEncoder tree -> the port's state_dict, which is
+    OpenAI CLIP's text-branch layout
+    (favae_tpu/utils/torch_convert.py:281-309)."""
+    sd: Dict[str, np.ndarray] = {
+        "token_embedding.weight": np.asarray(
+            params["token_embedding"]["embedding"]),
+        "positional_embedding": np.asarray(params["positional_embedding"]),
+        "text_projection": np.asarray(params["text_projection"]),
+    }
+    _put(sd, "ln_final", _norm(params["ln_final"]))
+    i = 0
+    while f"resblock_{i}" in params:
+        p, pre = params[f"resblock_{i}"], f"transformer.resblocks.{i}"
+        _put(sd, f"{pre}.ln_1", _norm(p["ln_1"]))
+        _put(sd, f"{pre}.attn", _packed_qkv(p))
+        _put(sd, f"{pre}.attn.out_proj", _linear(p["attn_out"]))
+        _put(sd, f"{pre}.ln_2", _norm(p["ln_2"]))
+        _put(sd, f"{pre}.mlp.c_fc", _linear(p["c_fc"]))
+        _put(sd, f"{pre}.mlp.c_proj", _linear(p["c_proj"]))
+        i += 1
+    return _tensors(sd)
+
+
+def _is_dead_gpt_entry(key: str) -> bool:
+    """Entries of the reference GPT's state_dict that carry no weight of the
+    model: the never-called `cond_proj`, the constant zero `beta` buffers,
+    the tied `to_logits.weight` and the rel-pos index buffer."""
+    return (key.startswith("cond_proj.") or key.endswith(".beta")
+            or key == "to_logits.weight" or key.endswith(".pos_indices"))
+
+
+def load_reference_gpt(gpt: torch.nn.Module, path_or_sd) -> None:
+    """Load a reference-format CAT checkpoint (`CelebA_CAT.pt`:
+    {"transformer_model": state_dict, ...}, or the state_dict itself) into a
+    port GPT, strictly apart from the reference's dead entries."""
+    sd = path_or_sd
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "transformer_model" in sd:
+        sd = sd["transformer_model"]
+    gpt.load_state_dict({k: v for k, v in sd.items()
+                         if not _is_dead_gpt_entry(k)}, strict=True)
+
+
+def load_reference_clip_text(clip: torch.nn.Module, path_or_sd) -> None:
+    """Load OpenAI CLIP's state_dict (whole, or already cut to the text
+    branch) into a port CLIPTextEncoder: the vision tower and the scalar
+    entries are dropped, the rest loads strictly."""
+    sd = path_or_sd
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "model" in sd:
+        sd = sd["model"]
+    own = set(clip.state_dict())
+    text = {k: v.float() for k, v in sd.items()
+            if k in own or k.startswith(("transformer.", "ln_final."))}
+    clip.load_state_dict(text, strict=True)
