@@ -7,7 +7,13 @@ Phases (any failure exits non-zero):
 2. build: compile the CUDA kernels from this checkout's `csrc/` (timed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the shapes celebahq_expe5 gives it, timed beside its bound
-   and a one-call PyTorch yardstick: the forward kernels at the
+   and a one-call PyTorch yardstick, three ways: `ms` (CUDA events around
+   eager wrapper calls, the host included), `device_ms` (the calls replayed
+   in a CUDA graph; `launch_floor_ms`, an empty launch replayed the same
+   way, is its floor) and, for the int8 kernels, `cold_ms` (a graph cycling
+   through 128 MB of distinct weight copies, so nothing is found in L2);
+   `vq_nearest` also with duplicated codes (exact ties go to the lowest
+   index), `matmul_int8` also at M 16 and M 2: the forward kernels at the
    reconstruction's shapes, the GroupNorm backward kernels at every shape a
    train step's backward gives them (a census of one step with the
    discriminator and one without); the three int8 kernels of CAT serving
@@ -49,6 +55,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, at the 700 W limit
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 in the tensor cores, dense
+TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 in the tensor cores, dense
+COLD_BYTES = 128 << 20      # weights a cold timing cycles through (L2: 50 MB)
 VQ_NEAR_TIE = 1e-5          # a chosen code may trail the best score by this
 SLICE_ARGS = ["--preset", "celebahq_expe5", "--synthetic_data",
               "--batch_size", "16", "--max_images", "64"]
@@ -112,6 +120,69 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fns, replays=5):
+    """Mean device time of one call with the host out of it: every function
+    of `fns` is called once while a CUDA graph captures, and the graph is
+    replayed `replays` times between CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * len(fns))
+    del graph
+    return ms
+
+
+def device_ms(fn, calls=20):
+    """A call's device time: `calls` of it in one replayed CUDA graph."""
+    return graph_ms([fn] * calls)
+
+
+def cold_copies(nbytes):
+    """How many distinct copies of `nbytes` of weights a cold timing cycles
+    through: together COLD_BYTES, well past the card's L2."""
+    return max(2, -(-COLD_BYTES // nbytes))
+
+
+def cold_ms(make_fn, copies):
+    """Device time of a call that finds its weights in device memory, not
+    in L2, as a decode step does: `make_fn(i)` gives the call on the i-th
+    copy of the weights, and one replayed graph cycles through them all."""
+    return graph_ms([make_fn(i) for i in range(copies)], replays=3)
+
+
+def launch_floor_ms():
+    """Replay time of an empty kernel launch: no kernel's device_ms can be
+    under it."""
+    import ctypes
+    import torch
+    from favae_tpu_torch import _build
+    fn = _build.library("empty_launch").favae_empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty launch failed")
+    return device_ms(launch, calls=50)
+
+
 def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_per_s * 1e3
@@ -144,21 +215,61 @@ def check_vq(n, k, d, metric, seed):
     gap = (best - scores.gather(1, idx.long()[:, None])[:, 0]).max().item()
     mismatch = int((idx != idx_plain).sum())
     b = torch.zeros(k, device="cuda") if bias is None else bias
+
+    def library():
+        return torch.argmax(torch.addmm(b, x, e.T), dim=-1)
+
     row = {
         "shape": f"N={n} K={k} D={d} {metric}",
         "max_abs_err": gap, "index_mismatches_vs_plain": mismatch,
         "ms": time_ms(lambda: vq.vq_nearest(x, e, bias)),
+        "device_ms": device_ms(lambda: vq.vq_nearest(x, e, bias)),
         "plain_ms": time_ms(lambda: vq.vq_nearest_plain(x, e, bias)),
-        "library_ms": time_ms(
-            lambda: torch.argmax(torch.addmm(b, x, e.T), dim=-1)),
+        "library_ms": time_ms(library),
+        "library_device_ms": device_ms(library),
     }
-    row["bound_ms"], row["bound_by"] = bound(
-        4 * (n * d + k * d + (k if bias is not None else 0) + n),
-        2 * n * k * d)
+    moved = 4 * (n * d + k * d + (k if bias is not None else 0) + n)
+    # what the kernel does: three TF32 products for one of f32; beside it
+    # the bound of the same function as f32 FMA outside the tensor cores
+    row["bound_ms"], row["bound_by"] = bound(moved, 6 * n * k * d,
+                                             TF32_FLOP_PER_S)
+    row["bound_f32_fma_ms"] = bound(moved, 2 * n * k * d)[0]
     log("vq", json.dumps(row))
     if gap > VQ_NEAR_TIE:
         raise AssertionError(f"vq_nearest {row['shape']}: chosen code trails "
                              f"the best score by {gap} > {VQ_NEAR_TIE}")
+    return row
+
+
+def check_vq_ties(n=4096, k=1024, d=256, distinct=300, seed=4):
+    """Many exact ties on the card: every code is a copy of one of
+    `distinct` rows, so each token's best score is shared by three or four
+    codes, bit for bit, and the kernel must name the lowest of them."""
+    import torch
+    from favae_tpu_torch.ops import vq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.nn.functional.normalize(
+        torch.randn(n, d, device="cuda", generator=g), dim=-1)
+    base = torch.nn.functional.normalize(
+        torch.randn(distinct, d, device="cuda", generator=g), dim=-1)
+    owner = torch.randint(distinct, (k,), device="cuda", generator=g)
+    e = base[owner].contiguous()
+    idx = vq.vq_nearest(x, e).long()
+    torch.cuda.synchronize()
+    first = torch.full((distinct,), k, device="cuda", dtype=torch.long)
+    first.scatter_reduce_(0, owner, torch.arange(k, device="cuda"), "amin")
+    scores = x.double() @ e.double().T
+    gap = (scores.max(dim=1).values
+           - scores.gather(1, idx[:, None])[:, 0]).max().item()
+    not_lowest = int((first[owner[idx]] != idx).sum())
+    row = {"shape": f"N={n} K={k} D={d}, {distinct} distinct codes",
+           "max_abs_err": gap, "not_the_lowest_index": not_lowest,
+           "tokens_with_tied_best": int(
+               (torch.bincount(owner, minlength=distinct)[owner[idx]] > 1
+                ).sum())}
+    log("vq-ties", json.dumps(row))
+    if gap > VQ_NEAR_TIE or not_lowest:
+        raise AssertionError(f"vq_nearest with duplicated codes: {row}")
     return row
 
 
@@ -231,10 +342,13 @@ def check_gn(key, seed):
         "shape": f"N={n} C={c} H={h} W={w} act={act} {in_dt}->{out_dt}",
         "stats": {"max_abs_err": stats_abs, "max_rel_err": stats_rel,
                   "ms": time_ms(lambda: gn.gn_stats(x)),
+                  "device_ms": device_ms(lambda: gn.gn_stats(x)),
                   "plain_ms": time_ms(lambda: gn.gn_stats_plain(x)),
                   "bound_ms": stats_bound},
         "apply": {"max_abs_err": apply_err.max().item(),
                   "ms": time_ms(lambda: gn.gn_apply(x, a, b, act, out_dt)),
+                  "device_ms": device_ms(
+                      lambda: gn.gn_apply(x, a, b, act, out_dt)),
                   "plain_ms": time_ms(
                       lambda: gn.gn_apply_plain(x, a, b, act, out_dt)),
                   "bound_ms": apply_bound},
@@ -276,8 +390,10 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
         "launches": launches["vq_nearest"],
         "launches_recon": recon_launches["vq_nearest"],
         "shape": vq_main["shape"],
-        **{f: vq_main[f] for f in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}}]
+        **{f: vq_main[f] for f in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_f32_fma_ms", "library_ms",
+            "library_device_ms")}}]
     for name, part, replaces in (
             ("gn_stats", "stats", "favae_tpu/ops/gn_pallas.py:137"),
             ("gn_apply", "apply", "favae_tpu/ops/gn_pallas.py:178")):
@@ -290,7 +406,7 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
                      "shapes, per recon batch",
             "max_abs_err": max(r[part]["max_abs_err"] for r in gn_rows),
             **{f: weighted(gn_rows, census, part, f)
-               for f in ("ms", "plain_ms", "bound_ms")},
+               for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes", "library_ms": None})
     lib = weighted(bwd_rows, bwd_census, "backward", "library_ms")
     for name, part, err, replaces in (
@@ -308,7 +424,7 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
             "max_abs_err_is": "relative to the summed magnitudes"
                               if part == "sums" else "absolute",
             **{f: weighted(bwd_rows, bwd_census, part, f)
-               for f in ("ms", "plain_ms", "bound_ms")},
+               for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes", "library_ms": lib})
     return rows
 
@@ -443,12 +559,16 @@ def check_gn_bwd(key, seed):
         "sums": {"max_rel_err": sums_rel,
                  "ms": time_ms(lambda: gn.gn_bwd_sums(x, dy, a, b, p, q,
                                                       act)),
+                 "device_ms": device_ms(lambda: gn.gn_bwd_sums(
+                     x, dy, a, b, p, q, act)),
                  "plain_ms": time_ms(lambda: gn.gn_bwd_sums_plain(
                      x, dy, a, b, p, q, act)),
                  "bound_ms": bound(xb + dyb + 6 * vec,
                                    (n_ops_g + 5) * elems)[0]},
         "dx": {"max_abs_err": dx_err.max().item(),
                "ms": time_ms(lambda: gn.gn_bwd_dx(x, dy, a, b, c2, c3, act)),
+               "device_ms": device_ms(lambda: gn.gn_bwd_dx(
+                   x, dy, a, b, c2, c3, act)),
                "plain_ms": time_ms(lambda: gn.gn_bwd_dx_plain(
                    x, dy, a, b, c2, c3, act)),
                "bound_ms": bound(2 * xb + dyb + 4 * vec,
@@ -512,12 +632,22 @@ def check_matmul_int8(m, k, n, seed):
     ok, err, differ = close_to_plain("matmul_int8", y, yp)
     again = im.matmul_int8(x, wq, scale)
     wd = (wq.bfloat16() * scale.bfloat16())  # pre-dequantised, for the yardstick
+    copies = cold_copies(wq.numel())
+    wqs = [wq.clone() for _ in range(copies)]
+    wds = [wd.clone() for _ in range(copies)]
     row = {"shape": f"M={m} K={k} N={n}", "max_abs_err": err,
            "elements_differ": differ, "out_max": yp.float().abs().max().item(),
            "same_bits_twice": bool(torch.equal(y, again)),
            "ms": time_ms(lambda: im.matmul_int8(x, wq, scale)),
+           "device_ms": device_ms(lambda: im.matmul_int8(x, wq, scale)),
+           "cold_ms": cold_ms(
+               lambda i: lambda: im.matmul_int8(x, wqs[i], scale), copies),
+           "cold_copies": copies,
            "plain_ms": time_ms(lambda: im.matmul_int8_plain(x, wq, scale)),
-           "library_ms": time_ms(lambda: x @ wd)}
+           "library_ms": time_ms(lambda: x @ wd),
+           "library_device_ms": device_ms(lambda: x @ wd),
+           "library_cold_ms": cold_ms(lambda i: lambda: x @ wds[i], copies)}
+    del wqs, wds
     row["bound_ms"], row["bound_by"] = bound(
         nbytes(x, wq, scale, y), 2 * m * k * n, BF16_FLOP_PER_S)
     log("matmul_int8", json.dumps(row))
@@ -546,14 +676,21 @@ def check_ffn_int8(rows, k, seed):
     yp = fi.ffn_block_int8_plain(x, g_in, prep)
     ok, err, differ = close_to_plain("ffn_int8", y, yp)
     again = fi.ffn_block_int8(x, g_in, prep)
+    copies = cold_copies(nbytes(*prep.values()))
+    preps = [{n: v.clone() for n, v in prep.items()} for _ in range(copies)]
     row = {"shape": f"rows={rows} K={k} F={f}", "max_abs_err": err,
            "elements_differ": differ, "out_max": yp.float().abs().max().item(),
            "same_bits_twice": bool(torch.equal(y, again)),
            "ms": time_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
+           "device_ms": device_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
+           "cold_ms": cold_ms(
+               lambda i: lambda: fi.ffn_block_int8(x, g_in, preps[i]), copies),
+           "cold_copies": copies,
            "plain_ms": time_ms(lambda: fi.ffn_block_int8_plain(x, g_in, prep)),
            "library_ms": None}
     row["bound_ms"], row["bound_by"] = bound(
         nbytes(x, g_in, y, *prep.values()), 4 * rows * k * f, BF16_FLOP_PER_S)
+    del preps
     log("ffn_int8", json.dumps(row))
     if not ok or not row["same_bits_twice"]:
         raise AssertionError(f"ffn_block_int8 {row['shape']}: max abs err "
@@ -632,6 +769,10 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
         ms = time_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches, *args))
         ms_first = time_ms(lambda: dk.decode_step_fused(xs[0], 0, caches,
                                                         *args))
+        # a step streams all of the model's int8 weights (more than the L2
+        # holds), so its device time is its cold time
+        dev_ms = device_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches,
+                                                        *args), calls=10)
         plain_ms = time_ms(lambda: dk.decode_step_fused_plain(
             xs[pos], pos, caches, *args), iters=3, warmup=1)
     weights = 2 * rows * sum(fused[n][0].numel() * n_layer for n in (
@@ -644,7 +785,8 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
                     f"S={seq} M={m_cross} pos={pos}",
            "checks": checks,
            "max_abs_err": max(c["x_max_abs_err"] for c in checks.values()),
-           "ms": ms, "ms_at_pos_0": ms_first, "plain_ms": plain_ms,
+           "ms": ms, "ms_at_pos_0": ms_first, "device_ms": dev_ms,
+           "cold_ms": dev_ms, "plain_ms": plain_ms,
            "library_ms": None,
            "weight_bytes": nbytes(*fused.values()),
            "blocks_per_sm": dk.BLOCKS_PER_SM}
@@ -662,6 +804,9 @@ def int8_kernel_checks():
     into the `kernels` line."""
     mm = [check_matmul_int8(8, k, n, 20 + i) for i, (k, n) in enumerate(
         [(1536, 1024), (1024, 1536), (1536, 6144), (6144, 1536)])]
+    # the second row tile of a block, and a ragged one
+    mm += [check_matmul_int8(16, 1536, 6144, 24),
+           check_matmul_int8(2, 1536, 6144, 25)]
     ffn = [check_ffn_int8(8, 1536, 30), check_ffn_int8(8, 1280, 31)]
     return {"matmul_int8": mm, "ffn_int8": ffn,
             "decode_step": check_decode_step()}
@@ -685,8 +830,10 @@ def int8_kernel_rows(checks, launches):
             "launches": launches[name],
             # as in the JAX package, no sampler calls matmul_int8
             "on_main_path": name != "matmul_int8", "shape": check["shape"],
-            **{f: check[f] for f in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}})
+            **{f: check[f] for f in (
+                "max_abs_err", "ms", "device_ms", "cold_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                "library_cold_ms") if f in check}})
     return rows
 
 
@@ -1076,6 +1223,7 @@ def main():
         f"triton {triton.__version__}")
     for stem in libs:
         log(_build.build_log(stem).strip())
+    log("launch_floor_ms", json.dumps(launch_floor_ms()))
 
     # phase 3: kernels at the shapes expe5 gives them
     cfg = celebahq_expe5()
@@ -1090,6 +1238,7 @@ def main():
     vq_rows = [check_vq(4096, 1024, 256, "cosine", 1),
                check_vq(4096, 1024, 256, "euclidean", 2),
                check_vq(4096, 16384, 256, "cosine", 3)]
+    check_vq_ties()
     gn_rows = [check_gn(key, i) for i, key in enumerate(census)]
 
     loss_cfg, train_cfg = celebahq_expe5_losses(), TrainConfig(batch_size=16)

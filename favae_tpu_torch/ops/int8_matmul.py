@@ -6,7 +6,10 @@ matrix per-output-column symmetric int8 weights and f32 scales;
 dequantised on the fly, so their bf16 copy never exists in device memory.
 With M <= 16 rows the product is bound by the K * N bytes of int8 weights;
 the kernel splits K as well as N over the blocks so that the card's SMs all
-stream, and adds the partial products in a fixed order (no float atomics).
+stream (a ring of TMA requests a block, `mma.sync` products), and the blocks of a
+column tile, one thread-block cluster along K, add their partial products
+through distributed shared memory in a fixed order (one launch, no float
+atomics). `matmul_plan` cuts a shape into row groups, cluster and chunk of K.
 
 As in the JAX package, no sampler calls `matmul_int8`: the serving engines
 use the fused FFN block (`ops/ffn_int8.py`) or the whole-step kernel
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,6 +37,13 @@ TILE_N = 128        # columns of one work item of csrc/int8_common.cuh
 KC_STEP = 64        # chunks of K are multiples of 8 warps x 8 rows in flight
 KC_MAX = 2048       # 8 x KC_MAX floats of activations fit in shared memory
 DEFAULT_SMS = 132   # H100 SXM
+
+# csrc/int8_matmul.cu over csrc/int8_mma.cuh
+MMA_TN = 128          # columns of a block's tile
+MMA_K = 16            # depth of one mma.sync: chunks of K are multiples of it
+MMA_KC_MAX = 4096     # 16 rows x this many bf16 activations beside the ring
+MAX_CLUSTER = 8       # the portable thread-block cluster size
+SMEM_MAX = 232448     # bytes of shared memory a block can use (227 KB)
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,6 +67,44 @@ def chunk_of_k(k: int, n: int, sms: int = DEFAULT_SMS) -> int:
     return max(KC_STEP, min(kc, KC_MAX, -(-k // KC_STEP) * KC_STEP))
 
 
+class MatmulPlan(NamedTuple):
+    """How `matmul_int8` cuts (M, K) x (K, N): column tiles of `MMA_TN`, row
+    groups of 8 * `nb`, and a cluster of `ranks` blocks along K, rank r
+    taking rows [r * kc, (r + 1) * kc) of the weights."""
+    nb: int
+    ranks: int
+    kc: int
+
+    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        return self.ranks, -(-n // MMA_TN), -(-m // (8 * self.nb))
+
+    def smem(self) -> int:
+        """Dynamic shared memory of a block, as csrc/int8_matmul.cu lays it
+        out: 1 KB to align the ring, 5 stages of 64 rows x 128 bytes, the
+        f32 partial, bf16 activations (the chunk rounded up to a stage of 64
+        rows) at a row stride of 8 mod 64."""
+        ldx = -(-self.kc // 64) * 64 + 8
+        return (1024 + 5 * 64 * MMA_TN + 8 * self.nb * MMA_TN * 4
+                + 8 * self.nb * ldx * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(m: int, k: int, n: int, sms: int = DEFAULT_SMS) -> MatmulPlan:
+    """The cluster along K doubles (up to 8, and while a rank keeps 64 rows)
+    until the blocks number two an SM."""
+    nb = 2 if m > 8 else 1
+    tiles = -(-n // MMA_TN) * -(-m // (8 * nb))
+    ranks = 1
+    while (ranks < MAX_CLUSTER and tiles * ranks < 2 * sms
+           and k >= 64 * 2 * ranks):
+        ranks *= 2
+    kc = -(-(-(-k // ranks)) // MMA_K) * MMA_K
+    if kc > MMA_KC_MAX:
+        raise ValueError(f"matmul_int8: K = {k} needs chunks of {kc} rows, "
+                         f"more than {MMA_KC_MAX}")
+    return MatmulPlan(nb, ranks, kc)
+
+
 def matmul_int8_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: x rounded to bf16, exact
@@ -67,9 +115,17 @@ def matmul_int8_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.library("int8_matmul").favae_matmul_int8
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _kernel(device: torch.device):
+    """The launch function, with the kernels' shared-memory allowance set
+    on `device`: once a device, not a call."""
+    lib = _build.library("int8_matmul")
+    with torch.cuda.device(device):
+        err = lib.favae_matmul_int8_init(MMA_KC_MAX)
+    if err != 0:
+        raise RuntimeError(f"matmul_int8: cudaFuncSetAttribute failed with "
+                           f"CUDA error {err}")
+    fn = lib.favae_matmul_int8
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,6 +133,15 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_on(device: torch.device, fn, *args) -> int:
+    """Call the launch function `fn` with `device` current (a kernel
+    launches on the current device); returns its CUDA error."""
+    if torch.cuda.current_device() == device.index:
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check_cuda(name: str, device: torch.device, tensors) -> None:
@@ -92,7 +157,8 @@ def check_cuda(name: str, device: torch.device, tensors) -> None:
 def matmul_int8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (M, K) bf16/f32 @ dequant(wq (K, N) int8, scale (1, N) f32) ->
-    (M, N) in out_dtype (bf16 or f32). N must be a multiple of 4."""
+    (M, N) in out_dtype (bf16 or f32). On the card N must be a multiple of
+    16 and wq 16-byte aligned (what a tensor map of the weights asks)."""
     if x.device.type == "cpu":
         return matmul_int8_plain(x, wq, scale, out_dtype)
     if x.device.type != "cuda":
@@ -110,15 +176,16 @@ def matmul_int8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     x = x.bfloat16()
     check_cuda("matmul_int8", x.device, [(x, torch.bfloat16), (wq, torch.int8),
                                          (scale, torch.float32)])
-    kc = chunk_of_k(k, n, sm_count(x.device))
-    part = torch.empty((-(-k // kc), m, n), dtype=torch.float32,
-                       device=x.device)
+    if n % 16 or wq.data_ptr() % 16:
+        raise ValueError(f"matmul_int8: on the card N = {n} must be a "
+                         "multiple of 16 and wq 16-byte aligned")
+    plan = matmul_plan(m, k, n, sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                        part.data_ptr(), out.data_ptr(), m, k, n, kc,
-                        int(out_dtype == torch.float32),
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    err = launch_on(
+        x.device, _kernel(x.device), x.data_ptr(), wq.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), m, k, n, *plan,
+        int(out_dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_int8: CUDA launch failed with error {err}")
     LAUNCHES["matmul_int8"] += 1

@@ -5,22 +5,29 @@ bias[k]) without materialising the (N, K) score matrix on the card. Ties go
 to the lowest index, as `torch.argmax` and the TPU kernel do.
 
 `vq_nearest` launches the CUDA kernel for CUDA tensors and takes the plain
-PyTorch version, `vq_nearest_plain`, only for CPU tensors.
+PyTorch version, `vq_nearest_plain`, only for CPU tensors. The kernel takes
+its products on the tensor cores in error-compensated TF32 (three TF32
+products for one of f32); `vq_nearest_tf32x3_plain` is that arithmetic in
+plain PyTorch, for the tests: its indices equal the f32 argmax outside
+near-ties.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from favae_tpu_torch import _build
+from favae_tpu_torch.ops.int8_matmul import DEFAULT_SMS, launch_on, sm_count
 
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"vq_nearest": 0}
 
-_BN, _BK = 64, 128  # token and code tile of csrc/vq_nearest.cu
+_BN, _BK = 128, 128  # token and code tile of csrc/vq_nearest.cu
+MAX_TILES = 1 << 16  # token tiles a device's arrival counters cover
 
 
 def vq_nearest_plain(x: torch.Tensor, e: torch.Tensor,
@@ -32,22 +39,77 @@ def vq_nearest_plain(x: torch.Tensor, e: torch.Tensor,
     return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
-def _kernel():
-    fn = _build.library("vq_nearest").favae_vq_nearest
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 bits of mantissa) to nearest, ties away from
+    zero, as `cvt.rna.tf32.f32` does."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def cut_tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 cut to TF32: the low 13 bits of the mantissa dropped, as the
+    tensor cores read an f32 operand."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def vq_nearest_tf32x3_plain(x: torch.Tensor, e: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The kernel's error-compensated product in plain PyTorch: x = hi + lo
+    and e = hi + lo, hi rounded to TF32 and the remainder cut to TF32,
+    scores = x_lo e_hi + x_hi e_lo + x_hi e_hi summed in f32 (the lo x lo
+    term, 2^-22 of the product, is dropped); int32."""
+    x, e = x.float(), e.float()
+    x_hi, e_hi = round_tf32(x), round_tf32(e)
+    x_lo, e_lo = cut_tf32(x - x_hi), cut_tf32(e - e_hi)
+    scores = (x_lo @ e_hi.T + x_hi @ e_lo.T) + x_hi @ e_hi.T
+    if bias is not None:
+        scores = scores + bias.float()
+    return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(device: torch.device):
+    """The launch function, with the kernel's shared-memory allowance set
+    on `device`: once a device, not a call."""
+    lib = _build.library("vq_nearest")
+    with torch.cuda.device(device):
+        err = lib.favae_vq_nearest_init()
+    if err != 0:
+        raise RuntimeError(f"vq_nearest: cudaFuncSetAttribute failed with "
+                           f"CUDA error {err}")
+    fn = lib.favae_vq_nearest
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _splits(n: int, k: int, device: torch.device):
-    """Split the codebook across blocks until the token tiles fill the SMs
-    about twice over: returns (tiles_per_split, splits)."""
+class VqPlan(NamedTuple):
+    """Blocks of `_BN` tokens; the code tiles of `_BK` cut into `splits`
+    runs of `tiles_per_split`, one block each (one run: no scratch)."""
+    tiles_per_split: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def vq_plan(n: int, k: int, sms: int = DEFAULT_SMS) -> VqPlan:
+    """The codebook is split across blocks while they stay within one for
+    each SM (a block fills one): N 4096, K 1024 gives 32 token tiles x 4
+    splits = 128 blocks."""
     n_tiles = -(-n // _BN)
     k_tiles = -(-k // _BK)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = min(k_tiles, max(1, -(-2 * sms // n_tiles)))
+    want = min(k_tiles, max(1, sms // n_tiles))
     per = -(-k_tiles // want)
-    return per, -(-k_tiles // per)
+    return VqPlan(per, -(-k_tiles // per))
+
+
+@functools.lru_cache(maxsize=None)
+def _arrived(device: torch.device) -> torch.Tensor:
+    """The device's arrival counters, one for each token tile: zero between
+    launches (the last block of a tile to arrive sets its counter back).
+    Made at the first launch on the device, which must not be one that a
+    CUDA graph captures."""
+    return torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
 
 
 def vq_nearest(x: torch.Tensor, e: torch.Tensor,
@@ -75,15 +137,23 @@ def vq_nearest(x: torch.Tensor, e: torch.Tensor,
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n == 0:
         return out
-    per, splits = _splits(n, k, x.device)
-    part_score = torch.empty((splits, n), dtype=torch.float32, device=x.device)
-    part_idx = torch.empty((splits, n), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), e.data_ptr(),
-                        None if bias is None else bias.data_ptr(),
-                        part_score.data_ptr(), part_idx.data_ptr(),
-                        out.data_ptr(), n, k, d, per, splits,
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    per, splits = vq_plan(n, k, sm_count(x.device))
+    if -(-n // _BN) > MAX_TILES:
+        raise ValueError(f"vq_nearest: N = {n} is more than "
+                         f"{MAX_TILES * _BN} tokens")
+    part_score = part_idx = None
+    if splits > 1:
+        part_score = torch.empty((splits, n), dtype=torch.float32,
+                                 device=x.device)
+        part_idx = torch.empty((splits, n), dtype=torch.int32,
+                               device=x.device)
+    err = launch_on(
+        x.device, _kernel(x.device), x.data_ptr(), e.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if part_score is None else part_score.data_ptr(),
+        None if part_idx is None else part_idx.data_ptr(),
+        _arrived(x.device).data_ptr(), out.data_ptr(), n, k, d, per, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vq_nearest: CUDA launch failed with error {err}")
     LAUNCHES["vq_nearest"] += 1
