@@ -133,7 +133,9 @@ def graph_ms(fns, replays=5):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the stream the calls were warmed up on (vq_nearest makes
+    # its arrival counters at a stream's first launch, never in a capture)
+    with torch.cuda.graph(graph, stream=side):
         for fn in fns:
             fn()
     graph.replay()
@@ -273,6 +275,38 @@ def check_vq_ties(n=4096, k=1024, d=256, distinct=300, seed=4):
     return row
 
 
+def check_vq_streams(n=4096, k=1024, d=256, seed=5, rounds=20):
+    """Launches in flight on two streams at once (code splits merged by
+    arrival counters) each give the indices of a launch alone."""
+    import torch
+    from favae_tpu_torch.ops import vq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn(n, d, device="cuda", generator=g) for _ in range(2)]
+    e = torch.nn.functional.normalize(
+        torch.randn(k, d, device="cuda", generator=g), dim=-1)
+    alone = [vq.vq_nearest(x, e) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(rounds):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(vq.vq_nearest(xs[i], e))
+    torch.cuda.synchronize()
+    wrong = sum(int((o != alone[i]).sum()) for i in range(2) for o in outs[i])
+    counters = {vq._arrived(torch.device("cuda", torch.cuda.current_device()),
+                            st.cuda_stream, False).data_ptr()
+                for st in streams}
+    row = {"shape": f"N={n} K={k} D={d}, 2 streams x {rounds} launches",
+           "splits": vq.vq_plan(n, k).splits, "indices_differ": wrong,
+           "counter_sets": len(counters)}
+    log("vq-streams", json.dumps(row))
+    if wrong or len(counters) != 2:
+        raise AssertionError(f"vq_nearest on two streams at once: {row}")
+    return row
+
+
 def gn_census(model, x):
     """Distinct GroupNorm calls of one reconstruction: {key: calls}, with
     key = (N, C, H, W, act, in dtype, out dtype)."""
@@ -356,9 +390,12 @@ def check_gn(key, seed):
             "max_abs_err": full_err,
             "ms": time_ms(lambda: gn.group_norm_act(
                 x, scale, bias, 32, act=act, out_dtype=out_dt)),
+            "device_ms": device_ms(lambda: gn.group_norm_act(
+                x, scale, bias, 32, act=act, out_dtype=out_dt)),
             "plain_ms": time_ms(lambda: gn.group_norm_act_plain(
                 x, scale, bias, 32, act=act, out_dtype=out_dt)),
             "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
             "bound_ms": bound(2 * xb + yb, 5 * elems)[0]},
     }
     log("gn", json.dumps(row))
@@ -382,7 +419,9 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
     The forward GroupNorm entries are per recon batch (`weighted` by the
     recon census), the backward ones per train step (by the train census); the backward entries carry
     the backward through F.silu(F.group_norm(...)) as library_ms, which
-    computes the whole GroupNorm backward (both kernels and the fold)."""
+    computes the whole GroupNorm backward (both kernels and the fold); the
+    forward ones F.silu(F.group_norm(...)) itself, which computes both
+    forward kernels and the fold (eager and replayed in a CUDA graph)."""
     rows = [{
         "name": "vq_nearest", "route": "cuda",
         "source": "favae_tpu_torch/csrc/vq_nearest.cu",
@@ -407,7 +446,12 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
             "max_abs_err": max(r[part]["max_abs_err"] for r in gn_rows),
             **{f: weighted(gn_rows, census, part, f)
                for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": "bytes",
+            "library_ms": weighted(gn_rows, census, "group_norm_act",
+                                   "library_ms"),
+            "library_device_ms": weighted(gn_rows, census, "group_norm_act",
+                                          "library_device_ms"),
+            "library_is": "F.silu(F.group_norm(...)): stats, fold and apply"})
     lib = weighted(bwd_rows, bwd_census, "backward", "library_ms")
     for name, part, err, replaces in (
             ("gn_bwd_sums", "sums", "max_rel_err",
@@ -700,15 +744,17 @@ def check_ffn_int8(rows, k, seed):
 
 
 def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
-                      check_at=(0, 1, 128, 255)):
+                      check_at=(0, 1, 128, 255), **widths):
     """The whole-step kernel at full width and depth with seeded random
-    weights: 256 positions in order on one cache; at `check_at` the plain
-    version takes the same inputs and a copy of the cache as it stood."""
+    weights (`widths` replaces fields of the preset): 256 positions in order
+    on one cache; at `check_at` the plain version takes the same inputs and
+    a copy of the cache as it stood."""
     import torch
     from favae_tpu_torch import config as C
     from favae_tpu_torch.models.gpt import GPT
     from favae_tpu_torch.ops import decode_step_kernel as dk
-    cfg = getattr(C, gpt_name)(vocab_size=1024, n_cond_embed=768)
+    cfg = dataclasses.replace(
+        getattr(C, gpt_name)(vocab_size=1024, n_cond_embed=768), **widths)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         gpt = GPT(cfg).cuda().eval()
@@ -721,6 +767,23 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
 
+    # what the kernel derives from the plan, against its mirror in Python
+    plan = dk.plan(cfg, torch.cuda.get_device_properties(0).multi_processor_count)
+    lib = dk._library()
+    scratch = lib.favae_decode_step_scratch(
+        rows, d, heads, plan["f"], plan["kc_q"], plan["kc_o"], plan["kc_1"],
+        plan["kc_2"])
+    smem = lib.favae_decode_step_smem(d, seq, m_cross, plan["kc_q"])
+    if (scratch != dk.scratch_layout(rows, plan)["total"][1]
+            or smem != dk.smem_bytes(d, seq, m_cross, plan["kc_q"])):
+        raise AssertionError(f"decode_step: the kernel's scratch {scratch} "
+                             f"or shared memory {smem} differs from "
+                             "scratch_layout / smem_bytes")
+    for prod, (k, n, kc) in dk.products(plan).items():
+        if dk.kernel_items(k, n, kc, rows) != dk.work_items(k, n, kc, rows):
+            raise AssertionError(f"decode_step: the kernel's work items of "
+                                 f"{prod} differ from work_items")
+    grid = lib.favae_decode_step_grid(d, seq, m_cross, plan["kc_q"])
     cross_kv = t(n_layer, rows, m_cross, dh).bfloat16()
     cross_bias = torch.zeros(rows, m_cross, device="cuda")
     cross_bias[rows // 2:, 1:] = -1e9      # the null-text half of a CFG batch
@@ -773,8 +836,23 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
         # holds), so its device time is its cold time
         dev_ms = device_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches,
                                                         *args), calls=10)
+        dev_ms_first = device_ms(lambda: dk.decode_step_fused(
+            xs[0], 0, caches, *args), calls=10)
         plain_ms = time_ms(lambda: dk.decode_step_fused_plain(
             xs[pos], pos, caches, *args), iters=3, warmup=1)
+        plain_ms_first = time_ms(lambda: dk.decode_step_fused_plain(
+            xs[0], 0, caches, *args), iters=3, warmup=1)
+        # phases and grid barriers of a layer, counted from the times the
+        # kernel writes: one when block 0 passed the set-up's barrier and
+        # one after each phase (the last without a barrier)
+        clock = torch.zeros(2 * (1 + len(dk.PHASES) * n_layer),
+                            dtype=torch.int64, device="cuda")
+        dk.decode_step_fused(xs[pos], pos, caches, *args, phase_clock=clock)
+        stamps = int((clock[:clock.numel() // 2] != 0).sum())
+    if (stamps - 1) % n_layer or (stamps - 1) // n_layer != len(dk.PHASES):
+        raise AssertionError(f"decode_step: the kernel wrote {stamps} phase "
+                             f"times over {n_layer} layers, PHASES names "
+                             f"{len(dk.PHASES)} a layer")
     weights = 2 * rows * sum(fused[n][0].numel() * n_layer for n in (
         "wq_s", "wo_s", "wq_c", "wo_c", "w1q", "w2q", "wkv"))
     attn = 4 * rows * heads * dh * n_layer * (seq + 1 + m_cross)
@@ -785,11 +863,15 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
                     f"S={seq} M={m_cross} pos={pos}",
            "checks": checks,
            "max_abs_err": max(c["x_max_abs_err"] for c in checks.values()),
-           "ms": ms, "ms_at_pos_0": ms_first, "device_ms": dev_ms,
-           "cold_ms": dev_ms, "plain_ms": plain_ms,
-           "library_ms": None,
+           "ms": ms, "device_ms": dev_ms, "cold_ms": dev_ms,
+           "plain_ms": plain_ms, "ms_at_pos_0": ms_first,
+           "device_ms_at_pos_0": dev_ms_first,
+           "plain_ms_at_pos_0": plain_ms_first, "library_ms": None,
            "weight_bytes": nbytes(*fused.values()),
-           "blocks_per_sm": dk.BLOCKS_PER_SM}
+           "phases_per_layer": (stamps - 1) // n_layer,
+           "grid_barriers_per_layer": (stamps - 1) // n_layer,
+           "grid_blocks": grid, "plan": plan,
+           "scratch_floats": scratch, "smem_bytes": smem}
     row["bound_ms"], row["bound_by"] = bound(moved, weights + attn,
                                              BF16_FLOP_PER_S)
     log("decode_step", json.dumps(row))
@@ -800,16 +882,21 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
 
 def int8_kernel_checks():
     """matmul_int8 at the four CAT projection shapes, ffn_block_int8 at
-    both widths, decode_step_fused at gpt2_medium; returns the rows that go
-    into the `kernels` line."""
+    both widths, decode_step_fused at gpt2_medium and gpt2_mini; returns the
+    rows that go into the `kernels` line."""
     mm = [check_matmul_int8(8, k, n, 20 + i) for i, (k, n) in enumerate(
         [(1536, 1024), (1024, 1536), (1536, 6144), (6144, 1536)])]
     # the second row tile of a block, and a ragged one
     mm += [check_matmul_int8(16, 1536, 6144, 24),
            check_matmul_int8(2, 1536, 6144, 25)]
     ffn = [check_ffn_int8(8, 1536, 30), check_ffn_int8(8, 1280, 31)]
-    return {"matmul_int8": mm, "ffn_int8": ffn,
-            "decode_step": check_decode_step()}
+    step = check_decode_step()
+    step["gpt2_mini"] = check_decode_step("gpt2_mini", seed=12)   # 24 heads
+    # widths no preset has but the JAX gate sends to its fused kernel: a q
+    # of 192 columns (its last tile half empty), rows wider than 2048
+    step["ragged"] = check_decode_step(seed=13, n_embed=2304, n_head=3,
+                                       n_layer=2)
+    return {"matmul_int8": mm, "ffn_int8": ffn, "decode_step": step}
 
 
 def int8_kernel_rows(checks, launches):
@@ -833,7 +920,14 @@ def int8_kernel_rows(checks, launches):
             **{f: check[f] for f in (
                 "max_abs_err", "ms", "device_ms", "cold_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "library_device_ms",
-                "library_cold_ms") if f in check}})
+                "library_cold_ms", "ms_at_pos_0", "device_ms_at_pos_0",
+                "plain_ms_at_pos_0", "phases_per_layer",
+                "grid_barriers_per_layer") if f in check}})
+        if name == "decode_step":
+            for other in ("gpt2_mini", "ragged"):
+                rows[-1][other] = {f: check[other][f] for f in (
+                    "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "device_ms_at_pos_0", "bound_ms")}
     return rows
 
 
@@ -1239,6 +1333,7 @@ def main():
                check_vq(4096, 1024, 256, "euclidean", 2),
                check_vq(4096, 16384, 256, "cosine", 3)]
     check_vq_ties()
+    check_vq_streams()
     gn_rows = [check_gn(key, i) for i, key in enumerate(census)]
 
     loss_cfg, train_cfg = celebahq_expe5_losses(), TrainConfig(batch_size=16)
@@ -1328,7 +1423,8 @@ def main():
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
     gn_total = {f: weighted(gn_rows, census, "group_norm_act", f)
-                for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for f in ("ms", "device_ms", "plain_ms", "library_ms",
+                          "library_device_ms", "bound_ms")}
     bwd_total = {f: weighted(bwd_rows, bwd_census, "backward", f)
                  for f in ("ms", "library_ms", "bound_ms")}
     bwd_total.update({f"fwd_bwd_{f}": weighted(bwd_rows, bwd_census,

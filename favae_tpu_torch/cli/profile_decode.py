@@ -3,7 +3,9 @@
 Runs `decode_step_fused` on the card at a GPT preset's full width and depth
 with seeded random weights and prints one JSON line: the kernel's time at a
 few positions (CUDA events) and, from the timestamps block 0 writes after
-each grid barrier, the mean time of each of a layer's 11 phases.
+each grid barrier, the mean time of each of a layer's phases
+(`ops.decode_step_kernel.PHASES`, one grid barrier after each), split into
+the work (until the last block reached the barrier) and the barrier.
 
     python -m favae_tpu_torch.cli.profile_decode [--gpt_name gpt2_medium]
 """
@@ -51,9 +53,10 @@ def main(argv=None):
         cross_bias = torch.zeros(rows, args.m_cross, device=dev)
         cross_bias[rows // 2:, 1:] = -1e9
         rel_rows = t(n_layer, heads, seq + 1)
-        clock = torch.zeros(1 + len(dk.PHASES) * n_layer, dtype=torch.int64,
-                            device=dev)
-        out = {"gpt_name": args.gpt_name, "rows": rows, "positions": {}}
+        n = 1 + len(dk.PHASES) * n_layer
+        clock = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+        out = {"gpt_name": args.gpt_name, "rows": rows,
+               "phases": list(dk.PHASES), "positions": {}}
         for pos in (0, seq // 2, seq - 1):
             def step(phase_clock=None):
                 dk.decode_step_fused(x, pos, caches, cross_kv, cross_bias,
@@ -68,16 +71,26 @@ def main(argv=None):
             end.record()
             torch.cuda.synchronize()
             phases = np.zeros(len(dk.PHASES))
+            work = np.zeros(len(dk.PHASES))
             for _ in range(args.iters):
+                clock.zero_()
                 step(clock)
                 ns = clock.cpu().numpy().astype(np.float64)
-                phases += np.diff(ns)[: len(dk.PHASES) * n_layer].reshape(
+                passed, reached = ns[:n], ns[n:]
+                # a time after the set-up's barrier and after each phase,
+                # the last phase's without a barrier
+                out["grid_barriers_per_layer"] = int(
+                    (passed != 0).sum() - 1) // n_layer
+                phases += np.diff(passed).reshape(n_layer, -1).sum(axis=0)
+                work += (reached[1:] - passed[:-1]).reshape(
                     n_layer, -1).sum(axis=0)
+            per_layer = lambda v: {name: us for name, us in zip(
+                dk.PHASES, v / args.iters / n_layer / 1e3)}
             out["positions"][pos] = {
                 "kernel_ms": start.elapsed_time(end) / args.iters,
-                "phase_us_per_layer": {
-                    name: us for name, us in zip(
-                        dk.PHASES, (phases / args.iters / n_layer / 1e3))},
+                "phase_us_per_layer": per_layer(phases),
+                "work_us_per_layer": per_layer(work),
+                "barrier_us_per_layer": per_layer(phases - work),
                 "phases_ms_per_token": float(phases.sum() / args.iters / 1e6)}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

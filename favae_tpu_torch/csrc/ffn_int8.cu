@@ -60,8 +60,7 @@ ffn_finish(const __nv_bfloat16* __restrict__ x, const float* part2,
            int F, float eps) {
   extern __shared__ __align__(16) float smem[];
   const int row = blockIdx.x;
-  ffn_row_finish(smem, nullptr, x, part2, stat, nchunk, rows, row, d, F, s2,
-                 c2, eps);
+  ffn_row_finish(smem, x, part2, stat, nchunk, rows, row, d, F, s2, c2, eps);
   for (int c = threadIdx.x; c < d; c += THREADS)
     y[(size_t)row * d + c] = __float2bfloat16(smem[c]);
 }

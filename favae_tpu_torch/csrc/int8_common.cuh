@@ -1,6 +1,8 @@
-// What the three int8 kernels (int8_matmul.cu, ffn_int8.cu, decode_step.cu)
-// share: a few bf16 rows of activations times a streamed int8 (K, N) weight
-// tile with f32 accumulation, and the small row-wise passes around it.
+// The CUDA-core item of ffn_int8.cu: a few bf16 rows of activations times a
+// streamed int8 (K, N) weight tile with f32 accumulation, and the small
+// row-wise passes around it. int8_mma.cuh (the tensor-core stage of
+// int8_matmul.cu and decode_step.cu) and decode_step.cu take the exact int8
+// conversion, the block reductions and the tanh GELU from here.
 //
 // The TPU kernels walk a sequential grid and carry their sums in scratch
 // memory. Blocks on the card run in no order, so the work is cut into items
@@ -117,15 +119,17 @@ __device__ __forceinline__ void load_many(float (&v)[N], const T* p,
   for (int i = 0; i < N; ++i) v[i] = load_cg(p + (size_t)min(i, n - 1) * stride);
 }
 
-// sum over i < n of p[i * stride], added in ascending order.
+// sum over i < n of p[i * stride], added in ascending order, N loads in
+// flight.
+template <int N = 8>
 __device__ __forceinline__ float sum_strided(const float* p, size_t stride,
                                              int n) {
   float a = 0.f;
-  for (int i0 = 0; i0 < n; i0 += 8) {
-    float v[8];
+  for (int i0 = 0; i0 < n; i0 += N) {
+    float v[N];
     load_many(v, p + (size_t)i0 * stride, stride, n - i0);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < N; ++i)
       if (i0 + i < n) a += v[i];
   }
   return a;
@@ -238,7 +242,8 @@ __device__ __forceinline__ void phase_proj(
 
 // buf[c] = sum over chunks of part[ch * chunk_stride + c], c in [0, d), the
 // chunks added in ascending order. A thread owns up to 8 columns at a time
-// and takes the chunks two by two, 16 loads in flight.
+// and takes 8 chunks of them at once, 64 loads in flight (each dependent
+// trip to L2 costs ~0.65 us inside the whole-step kernel on an H100).
 __device__ __forceinline__ void sum_chunks_row(float* buf, const float* part,
                                                int nchunk, size_t chunk_stride,
                                                int d) {
@@ -247,17 +252,18 @@ __device__ __forceinline__ void sum_chunks_row(float* buf, const float* part,
     float a[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) a[j] = 0.f;
-    for (int ch = 0; ch < nchunk; ch += 2) {
-      float v[2][8];
-      load_many(v[0], part + (size_t)ch * chunk_stride + c0, THREADS, n);
-      load_many(v[1], part + (size_t)min(ch + 1, nchunk - 1) * chunk_stride + c0,
-                THREADS, n);
+    for (int ch = 0; ch < nchunk; ch += 8) {
+      float v[8][8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) a[j] += v[0][j];
-      if (ch + 1 < nchunk) {
+      for (int c = 0; c < 8; ++c)
+        load_many(v[c], part + (size_t)min(ch + c, nchunk - 1) * chunk_stride +
+                            c0, THREADS, n);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) a[j] += v[1][j];
-      }
+      for (int c = 0; c < 8; ++c)
+        if (ch + c < nchunk) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) a[j] += v[c][j];
+        }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -362,14 +368,13 @@ __device__ __forceinline__ void phase_fc2(
 }
 
 // The end of the folded FFN for one row, by one block:
-// buf[c] = base[c] + inv * (sum_chunks(part2)[c] * s2[c] - mu * c2[c]) with
-// (mu, inv) from the chunk sums of h. `base` is the row the block adds to.
+// buf[c] = x[c] + inv * (sum_chunks(part2)[c] * s2[c] - mu * c2[c]) with
+// (mu, inv) from the chunk sums of h, x the bf16 rows the FFN adds to.
 // Leaves buf filled and the block synchronised.
 __device__ __forceinline__ void ffn_row_finish(
-    float* buf, const float* base_f32, const __nv_bfloat16* base_bf16,
-    const float* part2, const float* stat, int nchunk, int rows, int row,
-    int d, int F, const float* __restrict__ s2, const float* __restrict__ c2,
-    float eps) {
+    float* buf, const __nv_bfloat16* x, const float* part2, const float* stat,
+    int nchunk, int rows, int row, int d, int F, const float* __restrict__ s2,
+    const float* __restrict__ c2, float eps) {
   const float m1 = sum_strided(stat + (size_t)row * 2, (size_t)rows * 2, nchunk);
   const float m2 = sum_strided(stat + (size_t)row * 2 + 1, (size_t)rows * 2,
                                nchunk);
@@ -377,12 +382,9 @@ __device__ __forceinline__ void ffn_row_finish(
   const float var = fmaxf(m2 / F - mu * mu, 0.f);
   const float inv = 1.f / sqrtf(var + eps);
   sum_chunks_row(buf, part2 + (size_t)row * d, nchunk, (size_t)rows * d, d);
-  for (int c = threadIdx.x; c < d; c += THREADS) {
-    const float base = base_f32 != nullptr
-                           ? __ldcg(base_f32 + (size_t)row * d + c)
-                           : __bfloat162float(base_bf16[(size_t)row * d + c]);
-    buf[c] = base + inv * (buf[c] * s2[c] - mu * c2[c]);
-  }
+  for (int c = threadIdx.x; c < d; c += THREADS)
+    buf[c] = __bfloat162float(x[(size_t)row * d + c]) +
+             inv * (buf[c] * s2[c] - mu * c2[c]);
   __syncthreads();
 }
 

@@ -100,44 +100,6 @@ matmul_int8_kernel(const __nv_bfloat16* __restrict__ x,
   cluster_finish<MRB>(part, scale, out, rows, N, r0, col0, out_f32);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// CUDA's cuTensorMapEncodeTiled, looked up once through the runtime
-// (the library links no stub of libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The (K, N) int8 matrix as a 2-D tensor of bytes, boxes of SK rows x TN
-// columns written with the 128-byte swizzle, zeros outside the matrix.
-bool weight_map(CUtensorMap* map, const void* wq, int K, int N) {
-  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
-  const cuuint64_t strides[1] = {(cuuint64_t)N};
-  const cuuint32_t box[2] = {(cuuint32_t)TN, (cuuint32_t)mma8::SK};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode_tiled() != nullptr &&
-         encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        const_cast<void*>(wq), dims, strides, box, steps,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NB>
 cudaError_t launch(const void* x, const CUtensorMap& wmap, const void* scale,
                    void* out, int rows, int K, int N, int kc, int ranks,
@@ -194,7 +156,8 @@ extern "C" int favae_matmul_int8(const void* x, const void* wq,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap wmap;
-  if (!weight_map(&wmap, wq, K, N))
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  if (!mma8::weight_map(&wmap, wq, 2, dims))
     return static_cast<int>(cudaErrorNotSupported);
   cudaError_t err = cudaErrorInvalidValue;
   if (nb == 1)

@@ -142,26 +142,89 @@ __device__ __forceinline__ void issue_stage(uint8_t* ring, uint64_t* bars,
       : "memory");
 }
 
+// Stage `s` of an item of layer `layer` of an (L, K, N) int8 weight stack,
+// asked for by the calling thread alone: rows k + s SK .. + SK - 1, columns
+// col0 .. + TN - 1 of that layer through a 3-D tensor map (N, K, L), so rows
+// past K arrive as zeros instead of the next layer's, into `dst` (STAGE_BYTES
+// at a RING_ALIGN boundary), reporting to `bar`. The proxy fence orders the
+// block's earlier generic reads of `dst` before the copy overwrites it.
+__device__ __forceinline__ void issue_box3(uint8_t* dst, uint64_t* bar,
+                                           const CUtensorMap* wmap, int col0,
+                                           int k, int layer) {
+  const uint32_t b = shared_address(bar);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(STAGE_BYTES)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(shared_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(wmap)), "r"(b), "r"(col0), "r"(k),
+      "r"(layer)
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// CUDA's cuTensorMapEncodeTiled, looked up once through the runtime
+// (the libraries link no stub of libcuda); null where CUDA gives none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// An int8 weight tensor of `dims` (innermost first: N, K[, L]) with rows of
+// N bytes, cut into boxes of SK rows x TN columns (one layer) written with
+// the 128-byte swizzle, zeros outside the tensor.
+inline bool weight_map(CUtensorMap* map, const void* wq, int rank,
+                       const cuuint64_t* dims) {
+  const cuuint64_t strides[2] = {dims[0], dims[0] * dims[1]};  // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)TN, (cuuint32_t)SK, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode_tiled() != nullptr &&
+         encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
+                        const_cast<void*>(wq), dims, strides, box, steps,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Activations of the item into shared memory: xs[m][k - k0] = x[r0 + m][k]
 // for k in [k0, k1) and m < rows_valid, zero up to the chunk's padded length
 // and for the other rows. Asynchronous 16-byte copies where x allows them
 // (rows 16-byte aligned), plain loads otherwise; either way complete for the
 // block after wait_copies + __syncthreads.
+// `tid` of `nthreads` threads fill.
 template <int NB>
 __device__ __forceinline__ void fill_x(__nv_bfloat16* xs, int ldx,
                                        const __nv_bfloat16* __restrict__ x,
                                        int ldg, int r0, int rows_valid, int k0,
-                                       int k1, int kc_pad) {
+                                       int k1, int kc_pad, int tid,
+                                       int nthreads) {
   if (ldg % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
     const int pieces = kc_pad / 8;  // k0 is a multiple of 16
-    for (int i = threadIdx.x; i < 8 * NB * pieces; i += THREADS) {
+    for (int i = tid; i < 8 * NB * pieces; i += nthreads) {
       const int m = i / pieces, kk = i % pieces * 8;
       const int left = m < rows_valid ? min(max(k1 - k0 - kk, 0), 8) : 0;
       copy16(xs + m * ldx + kk,
              left ? x + (size_t)(r0 + m) * ldg + k0 + kk : x, 2 * left);
     }
   } else {
-    for (int i = threadIdx.x; i < 8 * NB * kc_pad; i += THREADS) {
+    for (int i = tid; i < 8 * NB * kc_pad; i += nthreads) {
       const int m = i / kc_pad, kk = i % kc_pad;
       const bool valid = m < rows_valid && k0 + kk < k1;
       xs[m * ldx + kk] =
@@ -169,6 +232,61 @@ __device__ __forceinline__ void fill_x(__nv_bfloat16* xs, int ldx,
     }
   }
   commit_copies();
+}
+
+// The products of one landed stage (SK weight rows x TN columns at `buf`,
+// as TMA wrote it with the 128-byte swizzle) with the activations
+// xs[m][koff .. koff + SK) (row stride ldx), added into acc[step parity][row
+// group][column pair] of warp `warp` (0 to 3), which owns columns
+// 32 warp .. + 31 of the tile.
+template <int NB>
+__device__ __forceinline__ void stage_products(const uint8_t* buf,
+                                               const __nv_bfloat16* xs, int ldx,
+                                               int koff, int warp, int lane,
+                                               float (&acc)[2][NB][2][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  // a thread's word of a weight row: columns 32 warp + 4 g .. + 3, that is
+  // piece 2 warp + g / 4, word g % 4 of it
+  const int piece = 2 * warp + (g >> 2), word = (g & 3) * 4;
+  // The stage's k-steps of 16 rows. A warp runs in order, so all of the
+  // stage's shared loads start before the first conversion; even and odd
+  // steps add into separate accumulators.
+  uint32_t wv[STEPS][4], xv[STEPS][NB][2];
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    const int kb = st * 16;
+    // the k-rows of the fragment: 2 t, 2 t + 1, 2 t + 8, 2 t + 9
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = kb + 2 * t + (j & 1) + 8 * (j >> 1);
+      wv[st][j] = *reinterpret_cast<const uint32_t*>(
+          buf + r * TN + ((piece ^ (r & 7)) << 4) + word);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(
+          xs + (b * 8 + g) * ldx + koff + kb + 2 * t);
+      xv[st][b][0] = row[0];
+      xv[st][b][1] = row[4];
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    float f[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dequant4(wv[st][j], f[j]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // rows g and g + 8 of the 16-row operand: columns 4 g + 2 h, + 1
+      const uint32_t a[4] = {pack_bf16(f[0][2 * h], f[1][2 * h]),
+                             pack_bf16(f[0][2 * h + 1], f[1][2 * h + 1]),
+                             pack_bf16(f[2][2 * h], f[3][2 * h]),
+                             pack_bf16(f[2][2 * h + 1], f[3][2 * h + 1])};
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        mma_bf16(acc[st & 1][b][h], a, xv[st][b][0], xv[st][b][1]);
+    }
+  }
 }
 
 // The item's product, for a block of THREADS threads, every one of them
@@ -200,7 +318,8 @@ __device__ __forceinline__ void tile_mma(
     for (int s = 0; s < min(stages, STAGES); ++s)
       issue_stage(ring, bars, s, wmap, k0, col0);
   }
-  fill_x<NB>(xs, ldx, x, ldg, r0, rows_valid, k0, k1, kc_pad);
+  fill_x<NB>(xs, ldx, x, ldg, r0, rows_valid, k0, k1, kc_pad,
+             threadIdx.x, THREADS);
   wait_copies<0>();
   __syncthreads();  // the activations are whole
 
@@ -215,51 +334,10 @@ __device__ __forceinline__ void tile_mma(
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[p][b][h][i] = 0.f;
 
-  // a thread's word of a weight row: columns 32 warp + 4 g .. + 3, that is
-  // piece 2 warp + g / 4, word g % 4 of it
-  const int piece = 2 * warp + (g >> 2), word = (g & 3) * 4;
   for (int s = 0; s < stages; ++s) {
     wait_barrier(&bars[s % STAGES], (s / STAGES) & 1);  // stage s has landed
-    const uint8_t* buf = ring + (s % STAGES) * STAGE_BYTES;
-    // The stage's k-steps of 16 rows. A warp runs in order, so all of the
-    // stage's shared loads start before the first conversion; even and odd
-    // steps add into separate accumulators.
-    uint32_t wv[STEPS][4], xv[STEPS][NB][2];
-#pragma unroll
-    for (int st = 0; st < STEPS; ++st) {
-      const int kb = st * 16;
-      // the k-rows of the fragment: 2 t, 2 t + 1, 2 t + 8, 2 t + 9
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = kb + 2 * t + (j & 1) + 8 * (j >> 1);
-        wv[st][j] = *reinterpret_cast<const uint32_t*>(
-            buf + r * TN + ((piece ^ (r & 7)) << 4) + word);
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const uint32_t* row = reinterpret_cast<const uint32_t*>(
-            xs + (b * 8 + g) * ldx + s * SK + kb + 2 * t);
-        xv[st][b][0] = row[0];
-        xv[st][b][1] = row[4];
-      }
-    }
-#pragma unroll
-    for (int st = 0; st < STEPS; ++st) {
-      float f[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dequant4(wv[st][j], f[j]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // rows g and g + 8 of the 16-row operand: columns 4 g + 2 h, + 1
-        const uint32_t a[4] = {pack_bf16(f[0][2 * h], f[1][2 * h]),
-                               pack_bf16(f[0][2 * h + 1], f[1][2 * h + 1]),
-                               pack_bf16(f[2][2 * h], f[3][2 * h]),
-                               pack_bf16(f[2][2 * h + 1], f[3][2 * h + 1])};
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-          mma_bf16(acc[st & 1][b][h], a, xv[st][b][0], xv[st][b][1]);
-      }
-    }
+    stage_products<NB>(ring + (s % STAGES) * STAGE_BYTES, xs, ldx, s * SK,
+                       warp, lane, acc);
     if (s + STAGES < stages) {
       __syncthreads();  // stage s is consumed by every warp
       if (threadIdx.x == 0) issue_stage(ring, bars, s + STAGES, wmap, k0, col0);

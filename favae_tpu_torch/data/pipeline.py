@@ -38,7 +38,7 @@ def _load_image(path: str):
     try:
         img = Image.open(path)
         return img if img.mode == "RGB" else img.convert("RGB")
-    except OSError:
+    except Exception:  # unreadable, truncated, or a decompression bomb
         return None
 
 

@@ -13,10 +13,18 @@ gumbel) stays in PyTorch.
 The step is bound by the bytes of every layer's weights. The CUDA kernel is
 one persistent cooperative launch whose blocks deal each phase's work items
 among themselves, with a barrier across the grid between dependent phases;
-see the source. `prepare_fused_decode` keeps the JAX function's arithmetic
-(the int8 values and scales are equal to its, since per-column quantisation
-does not depend on tiling) but lays each matrix out whole, (L, K, N)
-row-major, rather than as (L, T, d, w) tiles with `to_out` zero-padded.
+see the source. Its six int8 products run on the tensor cores over weight
+boxes that TMA brings through 3-D tensor maps, each block being two workers
+with a ring of `RING` boxes that is filled for the next product before the
+barriers in between. `plan` picks each product's chunk of K. `work_items`,
+`scratch_layout` and `smem_bytes` are copies of what the kernel derives
+from it, for the CPU tests; `chip_smoke.py` holds them against the
+library's own (`favae_decode_step_items`, `_scratch`, `_smem`).
+`prepare_fused_decode` keeps the JAX function's
+arithmetic (the int8 values and scales are equal to its, since per-column
+quantisation does not depend on tiling) but lays each matrix out whole,
+(L, K, N) row-major, rather than as (L, T, d, w) tiles with `to_out`
+zero-padded.
 
 `decode_step_fused` launches the kernel for CUDA tensors and takes the plain
 PyTorch version, `decode_step_fused_plain`, only for CPU tensors. Both write
@@ -27,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,33 +44,120 @@ from favae_tpu_torch.config import GPTConfig
 from favae_tpu_torch.ops.ffn_int8 import (folded_ffn_plain, layer_norm_rows,
                                           prepare_ffn_weights)
 from favae_tpu_torch.ops.int8_matmul import (DEFAULT_SMS, check_cuda,
-                                             chunk_of_k, quantize_weight,
-                                             sm_count)
+                                             quantize_weight, sm_count)
 
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"decode_step": 0}
 
 G = 8                # rows of one work item
 DIM_HEAD = 64        # head width csrc/decode_step.cu is written for
-BLOCKS_PER_SM = 2    # resident blocks asked of the cooperative grid
 EPS = 1e-5
 MAX_SLOTS = 4096     # kv slots whose scores fit the kernel's shared memory
+
+# csrc/decode_step.cu
+TILE_N = 128         # columns of a work item
+BOX_K = 64           # rows of K in one TMA box
+RING = 6             # boxes of a worker's ring
+KC_MAX = RING * BOX_K  # the longest chunk of K: an item's boxes fit its ring
+WORKERS = 2          # workers of 128 threads in a block of 256, one an SM
+MAX_D = 32 * 256     # widths the row phases hold (32 columns a thread)
+SMEM_ALLOWED = 160 * 1024  # dynamic shared memory of a block
+SMEM_SM = 233472     # shared memory of an SM; a block reserves 1 KB of it
 
 _GRIDS: Dict[tuple, int] = {}
 
 
 def plan(cfg: GPTConfig, sms: int = DEFAULT_SMS) -> dict:
     """Static work plan from the GPT config: widths and, for each of the
-    four int8 products, the chunk of K one work item takes."""
+    four int8 products, the chunk of K one work item takes: a multiple of
+    the `BOX_K` rows of a TMA box, at most `KC_MAX` (the item's boxes all fit
+    the ring, so a product's boxes can all be asked for before its barrier),
+    and as many chunks as keep the items within the grid's workers (one
+    item a worker: a second one would wait for its weights). Items are 128
+    columns; where n_head * dim_head is not a multiple of 128, the q
+    products' last tile is half empty."""
     d = cfg.n_embed
     inner = cfg.n_head * cfg.dim_head
     f = 4 * d
-    if d % 128 or inner % 4:
-        raise ValueError(f"n_embed {d} must be a multiple of 128 and "
-                         f"n_head * dim_head {inner} of 4")
-    return dict(d=d, inner=inner, f=f,
-                kc_q=chunk_of_k(d, inner, sms), kc_o=chunk_of_k(inner, d, sms),
-                kc_1=chunk_of_k(d, f, sms), kc_2=chunk_of_k(f, d, sms))
+    if d % TILE_N or inner % BOX_K or d > MAX_D:
+        raise ValueError(f"n_embed {d} must be a multiple of {TILE_N} and "
+                         f"at most {MAX_D}, n_head * dim_head {inner} a "
+                         f"multiple of {BOX_K}")
+    workers = WORKERS * sms
+
+    def kc(k, n):
+        chunks = max(1, workers // -(-n // TILE_N))
+        rows = -(-(-(-k // chunks)) // BOX_K) * BOX_K
+        return max(BOX_K, min(rows, KC_MAX))
+    return dict(d=d, inner=inner, f=f, kc_q=kc(d, inner), kc_o=kc(inner, d),
+                kc_1=kc(d, f), kc_2=kc(f, d))
+
+
+def products(p: dict) -> Dict[str, Tuple[int, int, int]]:
+    """(K, N, chunk of K) of each int8 product of a layer, in the kernel's
+    order."""
+    d, inner, f = p["d"], p["inner"], p["f"]
+    return {"q": (d, inner, p["kc_q"]), "out": (inner, d, p["kc_o"]),
+            "cross q": (d, inner, p["kc_q"]), "cross out": (inner, d, p["kc_o"]),
+            "fc1": (d, f, p["kc_1"]), "fc2": (f, d, p["kc_2"])}
+
+
+def work_items(k: int, n: int, kc: int, rows: int) -> List[Tuple[int, ...]]:
+    """The items of one (K, N) product in the kernel's order (column tile
+    fastest, then chunk of K, then row group): (tile, chunk, group, k0,
+    k1), rows k0..k1 of the layer's matrix and columns tile * TILE_N .. +
+    TILE_N (past n in a ragged last tile). Worker w of W takes items w,
+    w + W, ..."""
+    tiles, nch = -(-n // TILE_N), -(-k // kc)
+    out = []
+    for it in range(tiles * nch * (rows // G)):
+        t, c, g = it % tiles, it // tiles % nch, it // (tiles * nch)
+        out.append((t, c, g, c * kc, min(k, (c + 1) * kc)))
+    return out
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def scratch_layout(rows: int, p: dict) -> Dict[str, Tuple[int, int]]:
+    """(offset, length) in floats of each scratch segment, as
+    csrc/decode_step.cu lays them out (bf16 arrays take half a float an
+    element; every offset 16-byte aligned)."""
+    d, inner, f = p["d"], p["inner"], p["f"]
+    nkq, nko = -(-d // p["kc_q"]), -(-inner // p["kc_o"])
+    nk1, nk2 = -(-d // p["kc_1"]), -(-f // p["kc_2"])
+    sizes = [("xst", rows * d), ("xn", rows * d // 2), ("ao", rows * inner // 2),
+             ("h", rows * f // 2), ("part_q", nkq * rows * inner),
+             ("part_kv", nkq * rows * DIM_HEAD), ("part_o", nko * rows * d),
+             ("part1", nk1 * rows * f), ("part2", nk2 * rows * d),
+             ("hstat", f // TILE_N * rows * 2),
+             ("cnt", rows // G * (f // TILE_N))]
+    out, o = {}, 0
+    for name, n in sizes:
+        out[name] = (o, n)
+        o += _pad4(n)
+    out["total"] = (0, o)
+    return out
+
+
+def _x_stride(kc: int) -> int:
+    return kc + ((8 - kc % 64) + 64) % 64
+
+
+def smem_bytes(d: int, seq: int, m_cross: int, kc_q: int) -> int:
+    """Dynamic shared memory of a block, as csrc/decode_step.cu lays it out:
+    1 KB to align the rings, two rings of `RING` 8 KB boxes, then the two
+    workers' own regions (bf16 activations of a chunk and the fc1 finish's
+    sums, or the kv items' f32 activations and warp sums), which the
+    attention and row phases use as one region."""
+    mma = 8 * _x_stride(KC_MAX) * 2 + 4 * G * 2 * 4
+    kv = (kc_q * G + 4 * G * DIM_HEAD) * 4
+    own = -(-max(mma, kv) // 128) * 128
+    rows_phase = (d + 8) * 4
+    attn = ((3 + 8) * DIM_HEAD + 8 + max(seq + 1, m_cross)) * 4
+    return 1024 + WORKERS * RING * BOX_K * TILE_N + max(WORKERS * own,
+                                                        rows_phase, attn)
 
 
 def supports(cfg: GPTConfig, rows: int) -> bool:
@@ -74,8 +169,10 @@ def supports(cfg: GPTConfig, rows: int) -> bool:
     `inner <= d`. The last is not needed by this kernel (it multiplies
     `to_out` at its own depth instead of zero-padding it to d) but is kept
     so that `gpt2_large` goes on taking the FFN-only route and the two
-    packages' routes stay comparable. Dropped: `w % dim_head == 0`, which
-    only said that a Mosaic projection tile holds whole heads."""
+    packages' routes stay comparable. Dropped: `w % dim_head == 0` and
+    `d % w == 0`, which only said that a Mosaic projection tile holds whole
+    heads and divides d. Added: `d <= MAX_D`, the widest row the row phases
+    hold (the JAX gate has no bound)."""
     try:
         plan(cfg)
     except ValueError:
@@ -179,9 +276,29 @@ def _library():
     lib.favae_decode_step.restype = ctypes.c_int
     lib.favae_decode_step_scratch.argtypes = [ctypes.c_int] * 8
     lib.favae_decode_step_scratch.restype = ctypes.c_longlong
-    lib.favae_decode_step_grid.argtypes = [ctypes.c_int] * 8
+    lib.favae_decode_step_grid.argtypes = [ctypes.c_int] * 4
     lib.favae_decode_step_grid.restype = ctypes.c_int
+    lib.favae_decode_step_smem.argtypes = [ctypes.c_int] * 4
+    lib.favae_decode_step_smem.restype = ctypes.c_longlong
+    lib.favae_decode_step_items.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
+    lib.favae_decode_step_items.restype = ctypes.c_int
+    lib.favae_decode_step_phases.restype = ctypes.c_int
+    if lib.favae_decode_step_phases() != len(PHASES):
+        raise RuntimeError(
+            f"decode_step: the kernel has {lib.favae_decode_step_phases()} "
+            f"phases a layer, PHASES names {len(PHASES)}")
     return lib
+
+
+def kernel_items(k: int, n: int, kc: int, rows: int) -> List[Tuple[int, ...]]:
+    """The kernel's own work items of a (K, N) product, as `work_items`
+    gives them (needs the built library)."""
+    lib = _library()
+    count = lib.favae_decode_step_items(k, n, kc, rows, None, 0)
+    buf = (ctypes.c_int * (5 * count))()
+    lib.favae_decode_step_items(k, n, kc, rows, buf, count)
+    return [tuple(buf[5 * i:5 * i + 5]) for i in range(count)]
 
 
 _FUSED_DTYPES = {
@@ -209,9 +326,11 @@ def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
     cross_bias (rows, M) f32 (0 / -1e9); rel_rows (L, H, S+1) f32, this
     position's rel-pos bias row per layer with column 0 the null's; `fused`
     from `prepare_fused_decode`. `phase_clock`, a CUDA int64 tensor of
-    1 + 11 L entries, receives the device time in ns at which the set-up and
-    then each phase (`PHASES`, layer by layer) ended. Returns (x_new,
-    caches), `caches` being the tensor that was passed in."""
+    2 (1 + 11 L) entries, zero before the call, receives device times in
+    ns: first when block 0 passed the grid barrier after the set-up and
+    after each phase (`PHASES`, layer by layer), then the latest time a
+    block reached each of those barriers. Returns (x_new, caches), `caches`
+    being the tensor that was passed in."""
     if x.device.type == "cpu":
         return decode_step_fused_plain(x, pos, caches, cross_kv, cross_bias,
                                        rel_rows, fused, cfg)
@@ -246,9 +365,9 @@ def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
                              f"{tuple(fused[name].shape)} != "
                              f"{(n_layer,) + shape}")
     if phase_clock is not None and phase_clock.shape != (
-            1 + len(PHASES) * n_layer,):
+            2 * (1 + len(PHASES) * n_layer),):
         raise ValueError("decode_step_fused: phase_clock must hold "
-                         f"{1 + len(PHASES) * n_layer} entries")
+                         f"{2 * (1 + len(PHASES) * n_layer)} entries")
     check_cuda("decode_step_fused", x.device,
                ([] if phase_clock is None else [(phase_clock, torch.int64)]) +
                [(x, torch.bfloat16), (caches, torch.bfloat16),
@@ -260,10 +379,10 @@ def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
     kcs = (p["kc_q"], p["kc_o"], p["kc_1"], p["kc_2"])
     lib = _library()
     with torch.cuda.device(x.device):
-        key = (x.device.index, d, seq, m_cross, kcs, BLOCKS_PER_SM)
+        key = (x.device.index, d, seq, m_cross, p["kc_q"])
         if key not in _GRIDS:
-            _GRIDS[key] = lib.favae_decode_step_grid(d, seq, m_cross, *kcs,
-                                                     BLOCKS_PER_SM)
+            _GRIDS[key] = lib.favae_decode_step_grid(d, seq, m_cross,
+                                                     p["kc_q"])
         grid = _GRIDS[key]
         if grid < 1:
             raise RuntimeError("decode_step_fused: no block of the kernel "

@@ -12,9 +12,10 @@ through distributed shared memory in a fixed order (one launch, no float
 atomics). `matmul_plan` cuts a shape into row groups, cluster and chunk of K.
 
 As in the JAX package, no sampler calls `matmul_int8`: the serving engines
-use the fused FFN block (`ops/ffn_int8.py`) or the whole-step kernel
-(`ops/decode_step_kernel.py`), which share its inner loop
-(`csrc/int8_common.cuh`). It is kept as an op with its kernel.
+use the fused FFN block (`ops/ffn_int8.py`, over `csrc/int8_common.cuh`) or
+the whole-step kernel (`ops/decode_step_kernel.py`), which shares this
+kernel's tensor-core stage (`csrc/int8_mma.cuh`). It is kept as an op with
+its kernel.
 
 `matmul_int8` launches the CUDA kernel for CUDA tensors and takes the plain
 PyTorch version, `matmul_int8_plain`, only for CPU tensors.

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,7 +27,7 @@ from favae_tpu_torch.ops.int8_matmul import DEFAULT_SMS, launch_on, sm_count
 LAUNCHES = {"vq_nearest": 0}
 
 _BN, _BK = 128, 128  # token and code tile of csrc/vq_nearest.cu
-MAX_TILES = 1 << 16  # token tiles a device's arrival counters cover
+MAX_TILES = 1 << 16  # token tiles a stream's arrival counters cover
 
 
 def vq_nearest_plain(x: torch.Tensor, e: torch.Tensor,
@@ -103,13 +103,29 @@ def vq_plan(n: int, k: int, sms: int = DEFAULT_SMS) -> VqPlan:
     return VqPlan(per, -(-k_tiles // per))
 
 
-@functools.lru_cache(maxsize=None)
-def _arrived(device: torch.device) -> torch.Tensor:
-    """The device's arrival counters, one for each token tile: zero between
-    launches (the last block of a tile to arrive sets its counter back).
-    Made at the first launch on the device, which must not be one that a
-    CUDA graph captures."""
-    return torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
+_ARRIVED: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _arrived(device: torch.device, stream: int,
+             capturing: bool) -> torch.Tensor:
+    """The arrival counters of launches on one stream (`stream`, the CUDA
+    stream's handle) of `device`, one for each token tile: zero between
+    launches (the last block of a tile to arrive sets its counter back), and
+    never shared by launches in flight on two streams at once. Made at the
+    first launch on the stream, which must not be one that a CUDA graph
+    captures (`capturing`): the counters would then live in the graph's
+    memory pool, so that call raises."""
+    key = (device, stream)
+    counters = _ARRIVED.get(key)
+    if counters is None:
+        if capturing:
+            raise RuntimeError(
+                "vq_nearest: the first launch on a stream is being captured "
+                "by a CUDA graph; call it once on that stream before the "
+                "capture, so that its arrival counters exist")
+        counters = torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
+        _ARRIVED[key] = counters
+    return counters
 
 
 def vq_nearest(x: torch.Tensor, e: torch.Tensor,
@@ -152,7 +168,9 @@ def vq_nearest(x: torch.Tensor, e: torch.Tensor,
         None if bias is None else bias.data_ptr(),
         None if part_score is None else part_score.data_ptr(),
         None if part_idx is None else part_idx.data_ptr(),
-        _arrived(x.device).data_ptr(), out.data_ptr(), n, k, d, per, splits,
+        _arrived(x.device, torch.cuda.current_stream(x.device).cuda_stream,
+                 torch.cuda.is_current_stream_capturing()).data_ptr(),
+        out.data_ptr(), n, k, d, per, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vq_nearest: CUDA launch failed with error {err}")
