@@ -18,8 +18,11 @@ Phases (any failure exits non-zero):
    train step's backward gives them (a census of one step with the
    discriminator and one without); the three int8 kernels of CAT serving
    at the shapes `cat_celebahq` gives them (`matmul_int8` at the four
-   projection shapes, `ffn_block_int8` at both widths, `decode_step_fused`
-   at gpt2_medium's full width and depth over 256 positions);
+   projection shapes; `ffn_block_int8` at both widths and 2, 6, 8 and 16
+   rows, one launch a call, the same bits twice, over 100 replays of a
+   graph of the call and on two streams at once, its work plan held
+   against the Python copy; `decode_step_fused` at gpt2_medium's full width
+   and depth over 256 positions);
 4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
@@ -33,9 +36,13 @@ Phases (any failure exits non-zero):
 7. serve slice: `favae_tpu_torch.cli.generate` at cat_celebahq, 2 prompts x
    2 images, seeded random weights, through its three engines (exact bf16,
    `--quantized` on the whole-step kernel, `--quantized --gpt_name
-   gpt2_large` on the int8 FFN kernel), counts zeroed before and read
-   after each; then the same weights, text embeddings and gumbel noise
-   through each engine on the card and on the CPU at 2 layers.
+   gpt2_large` on the int8 FFN kernel, whose token step runs as a CUDA
+   graph with launches counted per replay), counts
+   zeroed before and read after each; `sample_tokens` at gpt2_large
+   through the graph on its exact route (the FFN-only route's yardstick)
+   and its FFN-only route, one seed twice and another once; then the same
+   weights, text embeddings and gumbel noise through each engine on the
+   card and on the CPU at 2 layers.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. TF32 is off for matmuls and cuDNN.
 """
@@ -702,7 +709,8 @@ def check_matmul_int8(m, k, n, seed):
     return row
 
 
-def check_ffn_int8(rows, k, seed):
+def ffn_case(rows, k, seed):
+    """Seeded inputs and int8 weights of one FFN block on the card."""
     import torch
     from favae_tpu_torch.ops import ffn_int8 as fi
     rng = np.random.RandomState(seed)
@@ -715,31 +723,116 @@ def check_ffn_int8(rows, k, seed):
     g_in, g_mid = t(1 + 0.1 * rng.randn(k)), t(1 + 0.1 * rng.randn(f))
     prep = fi.prepare_ffn_weights(t(rng.randn(k, f) * 0.05), g_mid,
                                   t(rng.randn(f, k) * 0.05))
+    return x, g_in, prep
+
+
+def check_ffn_plan(rows, k):
+    """The library's work items, scratch, counters and shared memory against
+    their Python copies in ops/ffn_int8.py."""
+    import torch
+    from favae_tpu_torch.ops import ffn_int8 as fi
+    p = fi.ffn_plan(k, 4 * k, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    got = fi.kernel_layout(rows, p)
+    cnt = fi.counter_layout(p)
+    want = {"items": [fi.work_items(p, 0), fi.work_items(p, 1)],
+            "scratch": fi.scratch_layout(rows, p)["total"][1],
+            "counters": (cnt["fin1"][0], cnt["cnt2"][0], cnt["total"][1]),
+            "slots": p["slots"], "smem": fi.smem_bytes(p, p["slots"], rows)}
+    for key in want:
+        if got[key] != want[key]:
+            raise AssertionError(f"ffn_int8 rows={rows} K={k}: the kernel's "
+                                 f"{key} differs from its Python copy")
+    return {"kc1": p["kc1"], "kc2": p["kc2"], "slots": p["slots"],
+            "smem_bytes": want["smem"], "items": [len(v) for v in want["items"]]}
+
+
+def check_ffn_int8(rows, k, seed, timed=False):
+    """One FFN block against its plain version: within one bf16 rounding, one
+    launch a call, the same bits twice and across 100 replays of a CUDA graph
+    of the call; timed (`timed`) three ways beside the plain version."""
+    import torch
+    from favae_tpu_torch.ops import ffn_int8 as fi
+    x, g_in, prep = ffn_case(rows, k, seed)
+    f = 4 * k
+    plan = check_ffn_plan(rows, k)
+    fi.LAUNCHES["ffn_int8"] = 0
     y = fi.ffn_block_int8(x, g_in, prep)
+    launches = fi.LAUNCHES["ffn_int8"]
     torch.cuda.synchronize()
     yp = fi.ffn_block_int8_plain(x, g_in, prep)
     ok, err, differ = close_to_plain("ffn_int8", y, yp)
     again = fi.ffn_block_int8(x, g_in, prep)
-    copies = cold_copies(nbytes(*prep.values()))
-    preps = [{n: v.clone() for n, v in prep.items()} for _ in range(copies)]
+    # 100 replays of one captured call, each compared with the eager result
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fi.ffn_block_int8(x, g_in, prep)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        yg = fi.ffn_block_int8(x, g_in, prep)
+    differ_replays = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(100):
+        graph.replay()
+        differ_replays += (yg != y).any()
+    del graph
     row = {"shape": f"rows={rows} K={k} F={f}", "max_abs_err": err,
            "elements_differ": differ, "out_max": yp.float().abs().max().item(),
+           "launches_a_call": launches,
            "same_bits_twice": bool(torch.equal(y, again)),
-           "ms": time_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
-           "device_ms": device_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
-           "cold_ms": cold_ms(
-               lambda i: lambda: fi.ffn_block_int8(x, g_in, preps[i]), copies),
-           "cold_copies": copies,
-           "plain_ms": time_ms(lambda: fi.ffn_block_int8_plain(x, g_in, prep)),
+           "replays_differing_of_100": int(differ_replays), "plan": plan,
            "library_ms": None}
     row["bound_ms"], row["bound_by"] = bound(
         nbytes(x, g_in, y, *prep.values()), 4 * rows * k * f, BF16_FLOP_PER_S)
-    del preps
+    if timed:
+        copies = cold_copies(nbytes(*prep.values()))
+        preps = [{n: v.clone() for n, v in prep.items()}
+                 for _ in range(copies)]
+        row.update({
+            "ms": time_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
+            "device_ms": device_ms(lambda: fi.ffn_block_int8(x, g_in, prep)),
+            "cold_ms": cold_ms(
+                lambda i: lambda: fi.ffn_block_int8(x, g_in, preps[i]), copies),
+            "cold_copies": copies,
+            "plain_ms": time_ms(lambda: fi.ffn_block_int8_plain(x, g_in,
+                                                                prep))})
+        del preps
     log("ffn_int8", json.dumps(row))
-    if not ok or not row["same_bits_twice"]:
+    if not (ok and launches == 1 and row["same_bits_twice"]
+            and row["replays_differing_of_100"] == 0):
         raise AssertionError(f"ffn_block_int8 {row['shape']}: max abs err "
-                             f"{err} beyond tolerance, or bits changed "
-                             "between two runs")
+                             f"{err} beyond tolerance, {launches} launches a "
+                             "call, or bits changed between runs")
+    return row
+
+
+def check_ffn_streams(rows=8, k=1280, seed=32, rounds=20):
+    """Launches in flight on two streams at once (each stream its own
+    arrival counters) each give the bits of a launch alone."""
+    import torch
+    from favae_tpu_torch.ops import ffn_int8 as fi
+    x, g_in, prep = ffn_case(rows, k, seed)
+    xs = [x, x.flip(0).contiguous()]
+    alone = [fi.ffn_block_int8(v, g_in, prep) for v in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(rounds):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fi.ffn_block_int8(xs[i], g_in, prep))
+    torch.cuda.synchronize()
+    wrong = sum(int((o != alone[i]).sum()) for i in range(2) for o in outs[i])
+    counters = {fi._arrived(torch.device("cuda", torch.cuda.current_device()),
+                            st.cuda_stream, False).data_ptr()
+                for st in streams}
+    row = {"shape": f"rows={rows} K={k}, 2 streams x {rounds} launches",
+           "elements_differ": wrong, "counter_sets": len(counters)}
+    log("ffn-streams", json.dumps(row))
+    if wrong or len(counters) != 2:
+        raise AssertionError(f"ffn_block_int8 on two streams at once: {row}")
     return row
 
 
@@ -882,14 +975,21 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
 
 def int8_kernel_checks():
     """matmul_int8 at the four CAT projection shapes, ffn_block_int8 at
-    both widths, decode_step_fused at gpt2_medium and gpt2_mini; returns the
-    rows that go into the `kernels` line."""
+    both widths and 2, 6, 8 and 16 rows (and on two streams at once),
+    decode_step_fused at gpt2_medium, gpt2_mini and a ragged width; returns
+    the rows that go into the `kernels` line."""
     mm = [check_matmul_int8(8, k, n, 20 + i) for i, (k, n) in enumerate(
         [(1536, 1024), (1024, 1536), (1536, 6144), (6144, 1536)])]
     # the second row tile of a block, and a ragged one
     mm += [check_matmul_int8(16, 1536, 6144, 24),
            check_matmul_int8(2, 1536, 6144, 25)]
-    ffn = [check_ffn_int8(8, 1536, 30), check_ffn_int8(8, 1280, 31)]
+    # every row count of 2B CFG rows up to B 8, both widths; the serve
+    # slice's shape (8 rows, gpt2_large's K 1280) first
+    ffn = [check_ffn_int8(rows, k, 30 + i, timed=rows == 8)
+           for i, (k, rows) in enumerate(
+               [(1280, 8), (1536, 8)] + [(k, r) for k in (1280, 1536)
+                                         for r in (2, 6, 16)])]
+    check_ffn_streams()
     step = check_decode_step()
     step["gpt2_mini"] = check_decode_step("gpt2_mini", seed=12)   # 24 heads
     # widths no preset has but the JAX gate sends to its fused kernel: a q
@@ -907,7 +1007,7 @@ def int8_kernel_rows(checks, launches):
     for name, check, source, replaces in (
             ("matmul_int8", checks["matmul_int8"][2], "int8_matmul.cu",
              "favae_tpu/ops/int8_matmul.py:47"),
-            ("ffn_int8", checks["ffn_int8"][1], "ffn_int8.cu",
+            ("ffn_int8", checks["ffn_int8"][0], "ffn_int8.cu",
              "favae_tpu/ops/ffn_int8.py:90"),
             ("decode_step", checks["decode_step"], "decode_step.cu",
              "favae_tpu/ops/decode_step_kernel.py:324")):
@@ -1208,6 +1308,80 @@ def serve_slice():
                   "matmul_int8": 0}
 
 
+def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
+    """`sample_tokens` at gpt2_large, 8 CFG rows, seeded random weights and
+    text embeddings, top-k 500, top-p 0.95, scale 3: the exact route (the
+    yardstick of the FFN-only one) and the FFN-only route, both through the
+    CUDA graph of the token step, ms a token from CUDA events after each
+    token (the first apart), counts zeroed just before each run; then the
+    FFN-only route twice with one seed and once with another."""
+    import torch
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.graphs import launch_counts
+    from favae_tpu_torch.models.decode_engine import (quantize_decode_params,
+                                                      sample_tokens)
+    from favae_tpu_torch.models.gpt import GPT
+    cfg = getattr(C, gpt_name)(vocab_size=1024, n_cond_embed=768)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        gpt = GPT(cfg, dtype=torch.bfloat16).eval()
+    gpt.cuda()
+    rng = np.random.RandomState(seed)
+    embeds = torch.from_numpy(rng.randn(b, 77, 768).astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.rand(b, 77) > 0.3).cuda()
+    qparams = quantize_decode_params(gpt)
+    seq = cfg.image_encoded_dim ** 2
+
+    def run(kw, gen_seed):
+        marks = []
+
+        def on_token(pos):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        for counts in launch_counts():
+            for k in counts:
+                counts[k] = 0
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        grid = sample_tokens(
+            cfg, gpt, embeds, mask, top_k=500, top_p=0.95, cond_scale=3.0,
+            dtype=torch.bfloat16, on_token=on_token,
+            generator=torch.Generator(device="cuda").manual_seed(gen_seed),
+            **kw)
+        torch.cuda.synchronize()
+        token_ms = [a.elapsed_time(e) for a, e in zip([start] + marks, marks)]
+        got = {k: v for counts in launch_counts() for k, v in counts.items()
+               if v}
+        return grid, {"first_token_ms": token_ms[0],
+                      "ms_per_token": statistics.mean(token_ms[1:]),
+                      "tokens_per_s": grid.numel() / sum(token_ms) * 1e3,
+                      "launches": got}
+
+    out = {}
+    with torch.inference_mode():
+        _, out["exact_graph"] = run({}, 3)
+        a, out["ffn_int8_graph"] = run({"qparams": qparams}, 3)
+        b2, _ = run({"qparams": qparams}, 3)
+        c, _ = run({"qparams": qparams}, 4)
+    out["same_seed_same_tokens"] = bool(torch.equal(a, b2))
+    out["other_seed_other_tokens"] = not torch.equal(a, c)
+    out["tokens_in_range"] = bool(0 <= int(a.min()) and int(a.max()) < 1024)
+    log("serve-graph", json.dumps(out))
+    want = {"ffn_int8": cfg.n_layer * seq}
+    if (out["exact_graph"]["launches"] != {}
+            or out["ffn_int8_graph"]["launches"] != want
+            or not (out["same_seed_same_tokens"]
+                    and out["other_seed_other_tokens"]
+                    and out["tokens_in_range"])):
+        raise AssertionError(f"serve through the token-step graph: {out}, "
+                             f"expected launches {want}")
+    del gpt, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_cross_check():
     """gpt2_medium width, 2 layers, 4x4 tokens, B=4: the same weights, text
     embeddings and injected gumbel noise on the card and on the CPU. (a) the
@@ -1419,6 +1593,7 @@ def main():
     # phase 7: the serve slice through its entry point, and its cross-check
     _, serve_launches = serve_slice()
     torch.cuda.empty_cache()
+    serve_graph_routes()
     serve_cross_check()
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch

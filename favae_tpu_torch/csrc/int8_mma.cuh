@@ -1,9 +1,9 @@
 // The int8 weight-streaming product on the tensor cores: a few bf16 rows of
 // activations times a chunk of an int8 (K, N) weight matrix, f32 sums.
 //
-// Same contract as int8_common.cuh::tile_mac_reduce (an item's rows x columns
-// x chunk of K -> an f32 partial that the caller adds to the other chunks in
-// ascending order), designed for the card instead of the CUDA cores:
+// An item's rows x columns x chunk of K -> an f32 partial that the caller
+// adds to the other chunks in ascending order (int8_common.cuh), designed for
+// the card's tensor cores:
 //   * Bytes in flight. The item's weight rows go through a ring of STAGES
 //     shared-memory buffers of 64 rows x 128 columns (8 KB). A buffer is
 //     filled by one TMA request (cp.async.bulk.tensor.2d through a tensor

@@ -15,8 +15,14 @@ routes:
   all large projections int8, the hidden state carried in f32.
 
 The int8 routes are lossy opt-ins (`CATModel.sample_images(quantized=True)`);
-the reference sampler has no quantized mode. The loop is a Python loop under
-`torch.inference_mode()`; each weight is cast to `dtype` once before it.
+the reference sampler has no quantized mode. Each weight is cast to `dtype`
+once before the loop. A token step keeps its state in tensors it updates in
+place (the cache position among them, as a 0-dim tensor) and makes no host
+sync, so on the card the exact and `qparams` routes run it as a CUDA graph,
+the counterpart of the JAX engine's `lax.scan` over positions
+(`graphs.run_steps`: the first token eagerly, then one capture of the step
+replayed for the others); on the CPU the same step runs eagerly. The fused
+route stays an eager loop: its kernel takes the position as an int.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from favae_tpu_torch.config import GPTConfig
+from favae_tpu_torch.graphs import run_steps
 from favae_tpu_torch.models.gpt import (GPT, NEG_INF, gumbel_sample,
                                         top_k_top_p_filter)
 from favae_tpu_torch.ops.decode_step_kernel import decode_step_fused
@@ -113,8 +120,14 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
                          device=dev)
 
     def embed_step(tok_prev, pos):
-        x = start if pos == 0 else emb[tok_prev] + axial[pos - 1]
+        prev = emb[tok_prev] + axial.index_select(0, (pos - 1).clamp(min=0)
+                                                  .view(1))
+        x = torch.where(pos == 0, start, prev)
         return layer_norm_rows(x, gpt.init_norm.gamma).to(dtype)
+
+    def cfg_logits(logits2):
+        cond, null = logits2[:b], logits2[b:]
+        return cond if cond_scale == 1 else null + (cond - null) * cond_scale
 
     def head(x):
         x = layer_norm_rows(x, gpt.final_norm.gamma)
@@ -125,11 +138,11 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
         rel_table = torch.stack([blk.self_attn.rel_pos_bias.pos_bias.weight
                                  for blk in blocks]).float()   # (L, n_rel, H)
 
-        def step_logits(tok_prev, pos):
+        def step_logits(tok_prev, pos, i):
             x = embed_step(tok_prev, pos)
-            rel = rel_table[:, rel_idx[pos], :]                # (L, S, H)
+            rel = rel_table[:, rel_idx[i], :]                  # (L, S, H)
             rel_rows = F.pad(rel.permute(0, 2, 1), (1, 0)).contiguous()
-            x, _ = decode_step_fused(x, pos, caches, cross_kv_st, cross_bias,
+            x, _ = decode_step_fused(x, i, caches, cross_kv_st, cross_bias,
                                      rel_rows, fused, c)
             return head(x)
     else:
@@ -146,17 +159,18 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
             {k: v[l] for k, v in qparams["ffn"].items()}
             for l in range(c.n_layer)]
 
-        def step_logits(tok_prev, pos):
+        def step_logits(tok_prev, pos, i=None):
             x = embed_step(tok_prev, pos)
             # self-attention mask bias (cols <= pos; col 0 the null, visible)
             self_bias = F.pad(torch.where(cols <= pos, 0.0, NEG_INF), (1, 0))
-            sel = rel_idx[pos]
+            sel = rel_idx.index_select(0, pos.view(1))[0]
             for l, (blk, wt) in enumerate(zip(blocks, wts)):
                 sa, ca, ff = blk.self_attn, blk.cross_attn, blk.ff
                 # --- causal self-attention over the KV cache ---
                 x_n = layer_norm_rows(x, sa.norm.gamma).to(dtype)
                 q = (x_n @ wt["sq"]) * scale
-                caches[l][:, pos] = x_n @ wt["skv"]
+                caches[l].index_copy_(1, pos.view(1),
+                                      (x_n @ wt["skv"])[:, None])
                 kv_full = torch.cat([wt["null"], caches[l]], dim=1)
                 rb = F.pad(sa.rel_pos_bias.pos_bias.weight[sel].T, (1, 0))
                 h = _attend(q, kv_full, (self_bias + rb)[None], heads, dh)
@@ -180,25 +194,46 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
                     x = h.to(x.dtype) + x
             return head(x)
 
-    tok_prev = torch.zeros((2 * b,), dtype=torch.long, device=dev)
-    tokens, logits_trace = [], []
-    for pos in range(seq_len):
-        logits2 = step_logits(tok_prev, pos)
-        cond, null = logits2[:b], logits2[b:]
-        logits = cond if cond_scale == 1 else null + (cond - null) * cond_scale
-        filtered = top_k_top_p_filter(logits, top_k, top_p)
-        tok = gumbel_sample(filtered, generator, temperature,
-                            None if gumbel_noise is None else gumbel_noise[pos])
-        # teacher-force the carried context after recording the free sample
-        carry = tok if forced_tokens is None else forced_tokens[:, pos].long()
-        tok_prev = torch.cat([carry, carry], 0)
-        tokens.append(tok)
-        if return_logits:
-            logits_trace.append(logits)
-        if on_token is not None:
-            on_token(pos)
-    g = c.image_encoded_dim
-    grid = torch.stack(tokens, dim=1).reshape(b, g, g)
+    # the step's state lives in tensors that it updates in place, the
+    # position among them, so that one capture of it serves every position
+    state = dict(pos=torch.zeros((), dtype=torch.long, device=dev),
+                 tok_prev=torch.zeros((2 * b,), dtype=torch.long, device=dev),
+                 tokens=torch.zeros((b, seq_len), dtype=torch.long,
+                                    device=dev))
     if return_logits:
-        return grid, torch.stack(logits_trace, dim=1)
+        state["logits"] = torch.zeros((b, seq_len, emb.shape[0]),
+                                      dtype=torch.float32, device=dev)
+    noise_all = None if gumbel_noise is None else gumbel_noise.to(dev)
+    forced_all = None if forced_tokens is None else forced_tokens.to(dev).long()
+
+    def token_step(i=None):  # i: the position as an int, for the fused route
+        pos = state["pos"]
+        at = pos.view(1)
+        logits = cfg_logits(step_logits(state["tok_prev"], pos, i))
+        tok = gumbel_sample(top_k_top_p_filter(logits, top_k, top_p),
+                            generator, temperature,
+                            None if noise_all is None
+                            else noise_all.index_select(0, at)[0])
+        # teacher-force the carried context after recording the free sample
+        carry = (tok if forced_all is None
+                 else forced_all.index_select(1, at)[:, 0])
+        state["tok_prev"].copy_(torch.cat([carry, carry], 0))
+        state["tokens"].index_copy_(1, at, tok[:, None])
+        if return_logits:
+            state["logits"].index_copy_(1, at, logits[:, None].float())
+        pos.add_(1)
+
+    if fused is not None:  # a launch a token that takes the position as an int
+        for i in range(seq_len):
+            token_step(i)
+            if on_token is not None:
+                on_token(i)
+    else:
+        run_steps(token_step, seq_len, dev,
+                  generator=generator if gumbel_noise is None else None,
+                  after=on_token)
+    g = c.image_encoded_dim
+    grid = state["tokens"].reshape(b, g, g)
+    if return_logits:
+        return grid, state["logits"]
     return grid

@@ -12,10 +12,9 @@ through distributed shared memory in a fixed order (one launch, no float
 atomics). `matmul_plan` cuts a shape into row groups, cluster and chunk of K.
 
 As in the JAX package, no sampler calls `matmul_int8`: the serving engines
-use the fused FFN block (`ops/ffn_int8.py`, over `csrc/int8_common.cuh`) or
-the whole-step kernel (`ops/decode_step_kernel.py`), which shares this
-kernel's tensor-core stage (`csrc/int8_mma.cuh`). It is kept as an op with
-its kernel.
+use the fused FFN block (`ops/ffn_int8.py`) or the whole-step kernel
+(`ops/decode_step_kernel.py`), both of which share this kernel's tensor-core
+stage (`csrc/int8_mma.cuh`). It is kept as an op with its kernel.
 
 `matmul_int8` launches the CUDA kernel for CUDA tensors and takes the plain
 PyTorch version, `matmul_int8_plain`, only for CPU tensors.
@@ -34,9 +33,6 @@ from favae_tpu_torch import _build
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"matmul_int8": 0}
 
-TILE_N = 128        # columns of one work item of csrc/int8_common.cuh
-KC_STEP = 64        # chunks of K are multiples of 8 warps x 8 rows in flight
-KC_MAX = 2048       # 8 x KC_MAX floats of activations fit in shared memory
 DEFAULT_SMS = 132   # H100 SXM
 
 # csrc/int8_matmul.cu over csrc/int8_mma.cuh
@@ -56,16 +52,6 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     wq = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return wq.contiguous(), scale.contiguous()
-
-
-def chunk_of_k(k: int, n: int, sms: int = DEFAULT_SMS) -> int:
-    """Rows of K one work item takes, so that the (column tile x chunk) items
-    of a (K, N) matrix number about two for each SM."""
-    tiles = -(-n // TILE_N)
-    want = max(1, round(2 * sms / tiles))
-    kc = -(-k // want)
-    kc = -(-kc // KC_STEP) * KC_STEP
-    return max(KC_STEP, min(kc, KC_MAX, -(-k // KC_STEP) * KC_STEP))
 
 
 class MatmulPlan(NamedTuple):
@@ -143,6 +129,28 @@ def launch_on(device: torch.device, fn, *args) -> int:
         return fn(*args)
     with torch.cuda.device(device):
         return fn(*args)
+
+
+def stream_counters(table: dict, name: str, device: torch.device,
+                    stream: int, capturing: bool, size: int) -> torch.Tensor:
+    """The integer arrival counters of kernel `name`'s launches on one
+    stream (`stream`, the CUDA stream's handle) of `device`, `size` of them,
+    kept in `table`: zero between launches (the kernel sets them back), and
+    never shared by launches in flight on two streams at once. Made at the
+    first launch on the stream, which must not be one that a CUDA graph
+    captures (`capturing`): the counters would then live in the graph's
+    memory pool, so that call raises."""
+    key = (device, stream)
+    counters = table.get(key)
+    if counters is None:
+        if capturing:
+            raise RuntimeError(
+                f"{name}: the first launch on a stream is being captured by a "
+                "CUDA graph; call it once on that stream before the capture, "
+                "so that its arrival counters exist")
+        counters = torch.zeros(size, dtype=torch.int32, device=device)
+        table[key] = counters
+    return counters
 
 
 def check_cuda(name: str, device: torch.device, tensors) -> None:

@@ -21,7 +21,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from favae_tpu_torch import _build
-from favae_tpu_torch.ops.int8_matmul import DEFAULT_SMS, launch_on, sm_count
+from favae_tpu_torch.ops.int8_matmul import (DEFAULT_SMS, launch_on, sm_count,
+                                             stream_counters)
 
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"vq_nearest": 0}
@@ -108,24 +109,10 @@ _ARRIVED: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 def _arrived(device: torch.device, stream: int,
              capturing: bool) -> torch.Tensor:
-    """The arrival counters of launches on one stream (`stream`, the CUDA
-    stream's handle) of `device`, one for each token tile: zero between
-    launches (the last block of a tile to arrive sets its counter back), and
-    never shared by launches in flight on two streams at once. Made at the
-    first launch on the stream, which must not be one that a CUDA graph
-    captures (`capturing`): the counters would then live in the graph's
-    memory pool, so that call raises."""
-    key = (device, stream)
-    counters = _ARRIVED.get(key)
-    if counters is None:
-        if capturing:
-            raise RuntimeError(
-                "vq_nearest: the first launch on a stream is being captured "
-                "by a CUDA graph; call it once on that stream before the "
-                "capture, so that its arrival counters exist")
-        counters = torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
-        _ARRIVED[key] = counters
-    return counters
+    """The arrival counters of launches on one stream of `device`, one for
+    each token tile (`int8_matmul.stream_counters`)."""
+    return stream_counters(_ARRIVED, "vq_nearest", device, stream, capturing,
+                           MAX_TILES)
 
 
 def vq_nearest(x: torch.Tensor, e: torch.Tensor,

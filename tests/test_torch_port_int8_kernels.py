@@ -270,17 +270,22 @@ def test_supports_and_plan():
     assert (p["d"], p["inner"], p["f"]) == (1536, 1024, 6144)
     for key, k in (("kc_q", 1536), ("kc_o", 1024), ("kc_1", 1536),
                    ("kc_2", 6144)):
-        assert p[key] % int8_matmul.KC_STEP == 0 and 0 < p[key] <= k
+        assert p[key] % dk.BOX_K == 0 and 0 < p[key] <= k
 
 
 @pytest.mark.parametrize("k,n", [(1536, 1024), (1024, 1536), (1536, 6144),
                                  (6144, 1536), (128, 128), (100, 64)])
 def test_chunk_of_k_covers_k(k, n):
-    kc = int8_matmul.chunk_of_k(k, n)
-    assert kc % int8_matmul.KC_STEP == 0
-    assert int8_matmul.KC_STEP <= kc <= int8_matmul.KC_MAX
-    chunks = -(-k // kc)
-    assert (chunks - 1) * kc < k <= chunks * kc
+    """The FFN kernel's chunks: whole boxes (fc1) or whole fc1 tiles
+    (fc2), covering K, as many items as the workers allow."""
+    workers = ffn_int8.WORKERS * 132
+    for unit in (ffn_int8.BOX_K, ffn_int8.TILE_N):
+        kc = ffn_int8.chunk_of_k(k, n, workers, unit)
+        assert kc % unit == 0 and unit <= kc <= -(-k // unit) * unit
+        chunks = -(-k // kc)
+        assert (chunks - 1) * kc < k <= chunks * kc
+        if kc > unit:          # a smaller chunk would give too many items
+            assert -(-n // 128) * -(-k // (kc - unit)) > workers
 
 
 def test_int8_wrappers_never_fall_back_off_the_cpu(gate_models):
