@@ -339,7 +339,7 @@ def gn_census(model, x):
     return seen, not_cl[0]
 
 
-def check_gn(key, seed):
+def check_gn(key, seed, groups=32):
     import torch
     import torch.nn.functional as F
     from favae_tpu_torch.ops import gn
@@ -360,27 +360,28 @@ def check_gn(key, seed):
     stats_rel = ((s - p).abs() / mag).max().item()
     stats_abs = (s - p).abs().max().item()
 
-    a, b, _, _ = gn.gn_affine(p, scale, bias, 32, hw, 1e-5)
+    a, b, _, _ = gn.gn_affine(p, scale, bias, groups, hw, 1e-5)
     y = gn.gn_apply(x, a, b, act, out_dt).float()
     yp = gn.gn_apply_plain(x, a, b, act, out_dt).float()
     apply_err = (y - yp).abs()
     # one rounding of out_dtype apart at most: 2^-7 relative for bf16
     apply_ok = bool((apply_err <= 1e-5 + 2 ** -7 * yp.abs()).all())
 
-    full = gn.group_norm_act(x, scale, bias, 32, act=act, out_dtype=out_dt)
-    full_plain = gn.group_norm_act_plain(x, scale, bias, 32, act=act,
+    full = gn.group_norm_act(x, scale, bias, groups, act=act, out_dtype=out_dt)
+    full_plain = gn.group_norm_act_plain(x, scale, bias, groups, act=act,
                                          out_dtype=out_dt)
     full_err = (full.float() - full_plain.float()).abs().max().item()
     ws, bs = scale.to(in_dt), bias.to(in_dt)
 
     def library():
-        y = F.group_norm(x, 32, ws, bs, 1e-5)
+        y = F.group_norm(x, groups, ws, bs, 1e-5)
         return F.silu(y) if act == "silu" else y
 
     stats_bound = bound(xb + 2 * vec, 3 * elems)[0]
     apply_bound = bound(xb + yb + 2 * vec, 2 * elems)[0]
     row = {
-        "shape": f"N={n} C={c} H={h} W={w} act={act} {in_dt}->{out_dt}",
+        "shape": f"N={n} C={c} H={h} W={w} G={groups} act={act} "
+                 f"{in_dt}->{out_dt}",
         "stats": {"max_abs_err": stats_abs, "max_rel_err": stats_rel,
                   "ms": time_ms(lambda: gn.gn_stats(x)),
                   "device_ms": device_ms(lambda: gn.gn_stats(x)),
@@ -396,11 +397,11 @@ def check_gn(key, seed):
         "group_norm_act": {
             "max_abs_err": full_err,
             "ms": time_ms(lambda: gn.group_norm_act(
-                x, scale, bias, 32, act=act, out_dtype=out_dt)),
+                x, scale, bias, groups, act=act, out_dtype=out_dt)),
             "device_ms": device_ms(lambda: gn.group_norm_act(
-                x, scale, bias, 32, act=act, out_dtype=out_dt)),
+                x, scale, bias, groups, act=act, out_dtype=out_dt)),
             "plain_ms": time_ms(lambda: gn.group_norm_act_plain(
-                x, scale, bias, 32, act=act, out_dtype=out_dt)),
+                x, scale, bias, groups, act=act, out_dtype=out_dt)),
             "library_ms": time_ms(library),
             "library_device_ms": device_ms(library),
             "bound_ms": bound(2 * xb + yb, 5 * elems)[0]},
@@ -460,14 +461,15 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
                                           "library_device_ms"),
             "library_is": "F.silu(F.group_norm(...)): stats, fold and apply"})
     lib = weighted(bwd_rows, bwd_census, "backward", "library_ms")
-    for name, part, err, replaces in (
-            ("gn_bwd_sums", "sums", "max_rel_err",
+    for name, part, err, route, source, replaces in (
+            ("gn_bwd_sums", "sums", "max_rel_err", "cuda",
+             "favae_tpu_torch/csrc/gn_bwd_sums.cu",
              "favae_tpu/ops/gn_pallas.py:89"),
-            ("gn_bwd_dx", "dx", "max_abs_err",
+            ("gn_bwd_dx", "dx", "max_abs_err", "triton",
+             "favae_tpu_torch/ops/gn.py",
              "favae_tpu/ops/gn_pallas.py:109")):
         rows.append({
-            "name": name, "route": "triton",
-            "source": "favae_tpu_torch/ops/gn.py",
+            "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches[name],
             "shape": f"{sum(bwd_census.values())} calls over "
                      f"{len(bwd_census)} shapes, per train step",
@@ -527,11 +529,49 @@ def train_census(state, model_cfg, loss_cfg, train_cfg, x):
     return calls, per_step
 
 
-def check_gn_bwd(key, seed):
-    """gn_bwd_sums and gn_bwd_dx against their plain versions, and the whole
-    autograd.Function backward against the plain Function, at one backward
-    shape; timed beside their bounds, the plain versions and the backward
-    through F.silu(F.group_norm(...))."""
+def backward_kernels(fn):
+    """Device kernels that one call of `fn` runs, from torch.profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def replays_differing(fn, ref, replays=100):
+    """How many of `replays` replays of a CUDA graph of one call of `fn`
+    give other values than `ref` (fn returns a tuple of tensors)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the stream's arrival counters exist before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    differ = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(replays):
+        graph.replay()
+        differ += torch.stack([(a != b).any() for a, b in zip(out, ref)]).any()
+    del graph
+    return int(differ)
+
+
+def check_gn_bwd(key, seed, groups=32):
+    """gn_bwd_sums (per-image sums, dscale, dbias, c2, c3) and gn_bwd_dx
+    against their plain versions, and the whole autograd.Function backward
+    against the plain Function, at one backward shape; the same bits on two
+    calls and over 100 replays of a graph of the call; the device kernels
+    of one backward call, beside those of the earlier design, "parent"
+    (a Triton sums kernel with p, q, the sum over chunks and the fold in
+    PyTorch: those operations counted here, plus its two Triton kernels);
+    timed beside their bounds, the plain versions and the
+    backward through F.silu(F.group_norm(...))."""
     import torch
     import torch.nn.functional as F
     from favae_tpu_torch.ops import gn
@@ -545,53 +585,94 @@ def check_gn_bwd(key, seed):
         out_dt).contiguous(memory_format=cl)
     scale = torch.randn(c, device="cuda", generator=g)
     bias = torch.randn(c, device="cuda", generator=g)
-    hw, elems, cg = h * w, n * c * h * w, c // 32
+    hw, elems, cg = h * w, n * c * h * w, c // groups
     xb, dyb, vec = elems * x.element_size(), elems * dy.element_size(), n * c * 4
 
-    a, b, mean, inv = gn.gn_affine(gn.gn_stats_plain(x), scale, bias, 32, hw,
-                                   1e-5)
+    a, b, mean, inv = gn.gn_affine(gn.gn_stats_plain(x), scale, bias, groups,
+                                   hw, 1e-5)
     p = inv.expand(-1, -1, cg).reshape(n, c)
     q = (-mean * inv).expand(-1, -1, cg).reshape(n, c)
-    s, sp = (gn.gn_bwd_sums(x, dy, a, b, p, q, act),
-             gn.gn_bwd_sums_plain(x, dy, a, b, p, q, act))
+
+    def sums_call():
+        return gn.gn_bwd_sums(x, dy, a, b, scale, mean, inv, act)
+
+    k, kp = sums_call(), gn.gn_bwd_sums_fold_plain(x, dy, a, b, scale, mean,
+                                                    inv, act)
     xf, gg = gn.act_grad_plain(x, dy, a, b, act)
     xhat = xf * p[:, :, None, None] + q[:, :, None, None]
     mag = torch.stack([gg.abs().sum(dim=(2, 3)),
                        (gg * xhat).abs().sum(dim=(2, 3))], dim=1)
-    sums_rel = ((s - sp).abs() / mag.clamp_min(1e-30)).max().item()
+    sums_rel = ((k.sums - kp.sums).abs() / mag.clamp_min(1e-30)).max().item()
+    mag_s = mag.sum(0)
+    ds_rel = max(
+        ((k.dscale - kp.dscale).abs() / mag_s[1].clamp_min(1e-30)).max().item(),
+        ((k.dbias - kp.dbias).abs() / mag_s[0].clamp_min(1e-30)).max().item())
+    # c2, c3 relative to the magnitudes of the terms they add up: c3's
+    # inv^2 sum |scale gx| / m, c2's inv sum |scale gs| / m + |c3 mean|
+    m = hw * cg
+    sa = scale.abs()
 
-    dscale, dbias, c2, c3 = gn.gn_bwd_fold(sp, scale, mean, inv, hw)
-    dx = gn.gn_bwd_dx(x, dy, a, b, c2, c3, act).float()
-    dxp = gn.gn_bwd_dx_plain(x, dy, a, b, c2, c3, act).float()
+    def per_group(v):
+        return (sa * v).view(n, groups, cg).sum(-1, keepdim=True)
+
+    c3_mag = (inv * inv * per_group(mag[:, 1]) / m)
+    c2_mag = inv * per_group(mag[:, 0]) / m + c3_mag * mean.abs()
+
+    def chan(v):
+        return v.expand(n, groups, cg).reshape(n, c)
+
+    coef_rel = max(
+        ((k.c2 - kp.c2).abs() / chan(c2_mag).clamp_min(1e-30)).max().item(),
+        ((k.c3 - kp.c3).abs() / chan(c3_mag).clamp_min(1e-30)).max().item())
+    again = sums_call()
+    bits_twice = all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                     for u, v in zip(k, again))
+    differ = replays_differing(sums_call, k)
+
+    dx = gn.gn_bwd_dx(x, dy, a, b, kp.c2, kp.c3, act).float()
+    dxp = gn.gn_bwd_dx_plain(x, dy, a, b, kp.c2, kp.c3, act).float()
     # one rounding of x.dtype apart at most, beside f32 error of the terms
     ulp = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}.get(in_dt, 1e-6)
-    terms = (a[:, :, None, None] * gg).abs() + c2.abs()[:, :, None, None] \
-        + (c3[:, :, None, None] * xf).abs()
+    terms = (a[:, :, None, None] * gg).abs() + kp.c2.abs()[:, :, None, None] \
+        + (kp.c3[:, :, None, None] * xf).abs()
     dx_err = (dx - dxp).abs()
     dx_ok = bool((dx_err <= 1e-5 * terms + ulp * dxp.abs() + 1e-6).all())
 
     # the whole Function, kernels against the plain versions, on the card
     def grads(fn):
         ins = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
-        y = fn(*ins, 32, act=act, out_dtype=out_dt)
+        y = fn(*ins, groups, act=act, out_dtype=out_dt)
         if y.grad_fn is None:
             raise AssertionError("group_norm_act output on CUDA has no grad_fn")
         return y, ins, torch.autograd.grad(y, ins, dy, retain_graph=True)
 
     y, ins, (fdx, fds, fdb) = grads(gn.group_norm_act)
     _, _, (pdx, pds, pdb) = grads(gn.group_norm_act_plain)
-    mag_s = mag.sum(0)
     fn_dx_ok = bool(((fdx.float() - pdx.float()).abs()
                      <= 1e-5 * terms + ulp * pdx.float().abs() + 1e-4).all())
     fn_rel = max(((fds - pds).abs() / mag_s[1].clamp_min(1e-30)).max().item(),
                  ((fdb - pdb).abs() / mag_s[0].clamp_min(1e-30)).max().item())
+
+    def backward():
+        torch.autograd.grad(y, ins, dy, retain_graph=True)
+
+    part = kp.sums.unsqueeze(1).repeat(1, 4, 1, 1)  # partials as it had them
+
+    def parent_ops():  # its PyTorch operations beside its two kernels
+        pp = inv.expand(-1, -1, cg).reshape(n, c)
+        qq = (-mean * inv).expand(-1, -1, cg).reshape(n, c)
+        gn.gn_bwd_fold(part.sum(dim=1), scale, mean, inv, hw)
+        return pp, qq
+
+    kernels = backward_kernels(backward)
+    parent_kernels = backward_kernels(parent_ops) + 2
 
     ws, bs = scale.to(in_dt), bias.to(in_dt)
     xl = x.detach().clone().requires_grad_()
     wl, bl = ws.clone().requires_grad_(), bs.clone().requires_grad_()
 
     def lib_fwd():
-        yl = F.group_norm(xl, 32, wl, bl, 1e-5)
+        yl = F.group_norm(xl, groups, wl, bl, 1e-5)
         return F.silu(yl) if act == "silu" else yl
 
     yl = lib_fwd()
@@ -600,34 +681,39 @@ def check_gn_bwd(key, seed):
         torch.autograd.grad(lib_fwd(), [xl, wl, bl], dy)
 
     def ours_fwd_bwd():
-        yo = gn.group_norm_act(ins[0], ins[1], ins[2], 32, act=act,
+        yo = gn.group_norm_act(ins[0], ins[1], ins[2], groups, act=act,
                                out_dtype=out_dt)
         torch.autograd.grad(yo, ins, dy)
 
     n_ops_g = 15 if act == "silu" else 1
     row = {
-        "shape": f"N={n} C={c} H={h} W={w} act={act} {in_dt}/{out_dt}",
-        "sums": {"max_rel_err": sums_rel,
-                 "ms": time_ms(lambda: gn.gn_bwd_sums(x, dy, a, b, p, q,
-                                                      act)),
-                 "device_ms": device_ms(lambda: gn.gn_bwd_sums(
-                     x, dy, a, b, p, q, act)),
-                 "plain_ms": time_ms(lambda: gn.gn_bwd_sums_plain(
-                     x, dy, a, b, p, q, act)),
+        "shape": f"N={n} C={c} H={h} W={w} G={groups} act={act} "
+                 f"{in_dt}/{out_dt}",
+        "plan": list(gn.bwd_sums_plan(n, hw, c, x.element_size(),
+                                      dy.element_size(), gn.sm_count(x.device))),
+        "sums": {"max_rel_err": sums_rel, "dscale_dbias_max_rel_err": ds_rel,
+                 "c2_c3_max_rel_err": coef_rel,
+                 "same_bits_twice": bits_twice,
+                 "replays_differing_of_100": differ,
+                 "ms": time_ms(sums_call),
+                 "device_ms": device_ms(sums_call),
+                 "plain_ms": time_ms(lambda: gn.gn_bwd_sums_fold_plain(
+                     x, dy, a, b, scale, mean, inv, act)),
                  "bound_ms": bound(xb + dyb + 6 * vec,
                                    (n_ops_g + 5) * elems)[0]},
         "dx": {"max_abs_err": dx_err.max().item(),
-               "ms": time_ms(lambda: gn.gn_bwd_dx(x, dy, a, b, c2, c3, act)),
+               "ms": time_ms(lambda: gn.gn_bwd_dx(x, dy, a, b, kp.c2, kp.c3,
+                                                  act)),
                "device_ms": device_ms(lambda: gn.gn_bwd_dx(
-                   x, dy, a, b, c2, c3, act)),
+                   x, dy, a, b, kp.c2, kp.c3, act)),
                "plain_ms": time_ms(lambda: gn.gn_bwd_dx_plain(
-                   x, dy, a, b, c2, c3, act)),
+                   x, dy, a, b, kp.c2, kp.c3, act)),
                "bound_ms": bound(2 * xb + dyb + 4 * vec,
                                  (n_ops_g + 4) * elems)[0]},
         "backward": {
             "dscale_dbias_max_rel_err": fn_rel,
-            "ms": time_ms(lambda: torch.autograd.grad(y, ins, dy,
-                                                      retain_graph=True)),
+            "kernels_a_call": kernels, "parent_kernels_a_call": parent_kernels,
+            "ms": time_ms(backward),
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 yl, [xl, wl, bl], dy, retain_graph=True)),
             "bound_ms": bound(2 * xb + dyb, (n_ops_g + 9) * elems)[0]},
@@ -635,12 +721,38 @@ def check_gn_bwd(key, seed):
                     "library_ms": time_ms(lib_fwd_bwd)},
     }
     log("gn_bwd", json.dumps(row))
-    if sums_rel > 1e-5 or not dx_ok or not fn_dx_ok or fn_rel > 1e-5:
+    if (sums_rel > 1e-5 or ds_rel > 1e-5 or coef_rel > 1e-5 or not dx_ok
+            or not fn_dx_ok or fn_rel > 1e-5 or not bits_twice
+            or differ or kernels > 3):
         raise AssertionError(
             f"group norm backward disagrees at {row['shape']}: sums rel "
-            f"{sums_rel}, dx ok {dx_ok}, Function dx ok {fn_dx_ok}, "
-            f"dscale/dbias rel {fn_rel}")
+            f"{sums_rel}, dscale/dbias rel {ds_rel}, c2/c3 rel {coef_rel}, "
+            f"dx ok {dx_ok}, Function dx ok {fn_dx_ok}, Function "
+            f"dscale/dbias rel {fn_rel}, same bits twice {bits_twice}, "
+            f"replays differing {differ}, kernels a backward "
+            f"call {kernels}")
     return row
+
+
+# the GroupNorm backward beyond the train step's shapes: imagenet_f4's first
+# conv-FCM GroupNorm (3 channels in 3 groups), odd H*W with C % 8 != 0 rows
+# at the image boundaries, and x and dy of other dtypes; (key, groups)
+GN_BWD_EXTRA = [((2, 3, 64, 64, "silu", "bfloat16", "bfloat16"), 3),
+                ((2, 64, 5, 5, "silu", "bfloat16", "bfloat16"), 16),
+                ((3, 12, 7, 5, None, "float16", "float32"), 4),
+                ((2, 128, 16, 16, "silu", "float32", "bfloat16"), 32)]
+
+
+def check_gn_bwd_layout():
+    """The built kernel's constants against ops/gn.py's copy of them."""
+    from favae_tpu_torch.ops import gn
+    want = (gn.BWD_CONSUMERS + 32, gn.BWD_CONSUMERS, gn.BWD_STAGES,
+            gn.BWD_MAX_BLOCKS, gn.BWD_SMEM_MAX)
+    got = gn.bwd_kernel_layout()
+    log("gn_bwd-layout", json.dumps({"kernel": got, "python": want}))
+    if got != want:
+        raise AssertionError(f"csrc/gn_bwd_sums.cu's layout {got} is not "
+                             f"ops/gn.py's {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -763,20 +875,8 @@ def check_ffn_int8(rows, k, seed, timed=False):
     yp = fi.ffn_block_int8_plain(x, g_in, prep)
     ok, err, differ = close_to_plain("ffn_int8", y, yp)
     again = fi.ffn_block_int8(x, g_in, prep)
-    # 100 replays of one captured call, each compared with the eager result
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fi.ffn_block_int8(x, g_in, prep)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        yg = fi.ffn_block_int8(x, g_in, prep)
-    differ_replays = torch.zeros((), dtype=torch.int64, device="cuda")
-    for _ in range(100):
-        graph.replay()
-        differ_replays += (yg != y).any()
-    del graph
+    differ_replays = replays_differing(
+        lambda: (fi.ffn_block_int8(x, g_in, prep),), (y,))
     row = {"shape": f"rows={rows} K={k} F={f}", "max_abs_err": err,
            "elements_differ": differ, "out_max": yp.float().abs().max().item(),
            "launches_a_call": launches,
@@ -1509,6 +1609,7 @@ def main():
     check_vq_ties()
     check_vq_streams()
     gn_rows = [check_gn(key, i) for i, key in enumerate(census)]
+    check_gn((2, 3, 64, 64, "silu", "bfloat16", "bfloat16"), 50, groups=3)
 
     loss_cfg, train_cfg = celebahq_expe5_losses(), TrainConfig(batch_size=16)
     state = FavaeTrainState.create(
@@ -1523,8 +1624,11 @@ def main():
         "backward_shapes": [list(k) + [v] for k, v in bwd_census.items()],
         "launches_per_step": {"disc_on": step_launches[True],
                               "disc_off": step_launches[False]}}))
+    check_gn_bwd_layout()
     bwd_rows = [check_gn_bwd(key, 100 + i)
                 for i, key in enumerate(bwd_census)]
+    for i, (key, groups) in enumerate(GN_BWD_EXTRA):
+        check_gn_bwd(key, 200 + i, groups)
     torch.cuda.empty_cache()
     int8_checks = int8_kernel_checks()
 

@@ -16,7 +16,7 @@ import torch
 _GROUPS = (
     ("vq_nearest (CUDA)", ("vq_argmax",)),
     ("group norm fwd (Triton)", ("_stats_kernel", "_apply_kernel")),
-    ("group norm bwd (Triton)", ("_bwd_sums_kernel", "_bwd_dx_kernel")),
+    ("group norm bwd (CUDA, Triton)", ("gn_bwd_sums", "_bwd_dx_kernel")),
     ("conv / matmul", ("conv", "gemm", "xmma", "cutlass", "sm90_", "cudnn",
                        "implicit", "nchwToNhwc", "nhwcToNchw", "wgrad",
                        "dgrad")),

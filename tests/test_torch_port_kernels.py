@@ -221,8 +221,9 @@ def test_wrappers_never_fall_back_off_the_cpu():
         gn.group_norm_act(x, torch.ones(64, device="meta"),
                           torch.zeros(64, device="meta"), 32)
     v = torch.empty(2, 64, device="meta")
+    s, m = torch.ones(64, device="meta"), torch.empty(2, 32, 1, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        gn.gn_bwd_sums(x, x, v, v, v, v, "silu")
+        gn.gn_bwd_sums(x, x, v, v, s, m, m, "silu")
     with pytest.raises(ValueError, match="unsupported device"):
         gn.gn_bwd_dx(x, x, v, v, v, v, None)
     with pytest.raises(ValueError, match="unsupported device"):
