@@ -42,7 +42,15 @@ Phases (any failure exits non-zero):
    through the graph on its exact route (the FFN-only route's yardstick)
    and its FFN-only route, one seed twice and another once; then the same
    weights, text embeddings and gumbel noise through each engine on the
-   card and on the CPU at 2 layers.
+   card and on the CPU at 2 layers;
+8. CAT train slice: `favae_tpu_torch.cli.train_cat` at cat_celebahq
+   (gpt2_medium, CLIP ViT-L/14 text, f16 cosine FA-VAE), batch 16, 256 px,
+   synthetic captions, seeded random weights, one short epoch on the full
+   pipeline (the frozen encode, rows 1-3, in every step) and one with
+   `--cache_latents` (the encode once, before the steps), counts zeroed
+   just before each run and held to the encodes each run makes; then one
+   step at gpt2_medium width and 2 layers, B=2, f32, from one state on the
+   card and on the CPU.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. TF32 is off for matmuls and cuDNN.
 """
@@ -421,9 +429,11 @@ def weighted(rows, census, part, field):
 
 
 def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
-                recon_launches):
+                recon_launches, cat_step_launches):
     """The `kernels` line: one entry per kernel. `launches` are the train
-    slice's (every kernel runs there), `launches_recon` the recon slice's.
+    slice's (every kernel runs there), `launches_recon` the recon slice's,
+    `launches_cat_train_step` those of a CAT train step on the full
+    pipeline (its frozen encode).
     The forward GroupNorm entries are per recon batch (`weighted` by the
     recon census), the backward ones per train step (by the train census); the backward entries carry
     the backward through F.silu(F.group_norm(...)) as library_ms, which
@@ -436,6 +446,7 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
         "replaces": "favae_tpu/ops/vq_pallas.py:65",
         "launches": launches["vq_nearest"],
         "launches_recon": recon_launches["vq_nearest"],
+        "launches_cat_train_step": cat_step_launches["vq_nearest"],
         "shape": vq_main["shape"],
         **{f: vq_main[f] for f in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -449,6 +460,7 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
             "source": "favae_tpu_torch/ops/gn.py",
             "replaces": replaces, "launches": launches[name],
             "launches_recon": recon_launches[name],
+            "launches_cat_train_step": cat_step_launches[name],
             "shape": f"{sum(census.values())} calls over {len(census)} "
                      "shapes, per recon batch",
             "max_abs_err": max(r[part]["max_abs_err"] for r in gn_rows),
@@ -471,6 +483,7 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
         rows.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_cat_train_step": cat_step_launches[name],
             "shape": f"{sum(bwd_census.values())} calls over "
                      f"{len(bwd_census)} shapes, per train step",
             "max_abs_err": max(r[part][err] for r in bwd_rows),
@@ -1347,6 +1360,21 @@ SERVE_RUNS = (("exact", [], 0, 0),
 # agree at 0.9, the bound the JAX package's own test of its fused kernel
 # uses (0.98 and 1.0 measured).
 SERVE_XCHECK = {"f32_logits": 1e-4, "bf16_logits": 0.15, "agreement": 0.9}
+# the CAT train slice: steps an epoch (the steady time is the median of all
+# but the first two), synthetic val batches (train_cat's 4), and the
+# cross-check's bounds: expe5's (TRAIN_XCHECK) for the loss, relative, and
+# the largest parameter error, in units of the learning rate; after one
+# AdamW update a parameter moves by about lr whatever its gradient, so the
+# mean error is held to the CPU test's 1e-3 lr as well (5.6e-7 measured on
+# an H100) and the step's own token ids must be equal
+CAT_STEPS = 10
+CAT_VAL_BATCHES = 4
+CAT_TRAIN_ARGS = ["--ds", "chip_smoke_cat", "--output_dir",
+                  str(ROOT / "output"), "--synthetic_data", "--use_cosine_sim",
+                  "--gpt_name", "gpt2_medium", "--batch_size", "16",
+                  "--epochs", "1", "--synthetic_steps", str(CAT_STEPS),
+                  "--print_steps", str(CAT_STEPS)]
+CAT_XCHECK = {"loss_rel": 1e-3, "param_max_lr": 2.1, "param_mean_lr": 1e-3}
 
 
 def int8_counts():
@@ -1555,6 +1583,184 @@ def serve_cross_check():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the CAT train slice and its cross-check
+# ---------------------------------------------------------------------------
+
+def zero_counts():
+    from favae_tpu_torch.graphs import launch_counts
+    for counts in launch_counts():
+        for k in counts:
+            counts[k] = 0
+
+
+def cat_train_slice():
+    """`cli.train_cat` at cat_celebahq, B=16, one epoch of CAT_STEPS steps
+    and CAT_VAL_BATCHES val batches, on the full pipeline and with
+    --cache_latents, counts zeroed just before each run and read just
+    after; the steps' own launches are the counts' rise over the epoch's
+    steps in that run. Both runs make CAT_STEPS + CAT_VAL_BATCHES encodes
+    of B=16 (in the steps and val batches, or in the precompute): one
+    vq_nearest and as many gn_stats as gn_apply an encode, none in the
+    cached steps, no GroupNorm backward, no int8 kernel. Returns the runs
+    and the full pipeline's launches a step."""
+    import torch
+    from favae_tpu_torch.cli import train_cat
+    from favae_tpu_torch.graphs import launch_counts
+    from favae_tpu_torch.ops import gn, vq
+    from favae_tpu_torch.train.cat_trainer import CATTrainer
+
+    def rows_1_4():
+        return {**vq.LAUNCHES, **gn.LAUNCHES}
+
+    in_steps = []
+    train_epoch = CATTrainer.train_epoch
+
+    def counted_epoch(self, *args, **kw):
+        torch.cuda.synchronize()
+        before = rows_1_4()
+        train_epoch(self, *args, **kw)
+        torch.cuda.synchronize()
+        in_steps.append({k: v - before[k] for k, v in rows_1_4().items()})
+
+    runs = {}
+    encodes = CAT_STEPS + CAT_VAL_BATCHES
+    for name, extra in (("full", []), ("cached", ["--cache_latents"])):
+        in_steps.clear()
+        zero_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        CATTrainer.train_epoch = counted_epoch
+        try:
+            out = train_cat.main(CAT_TRAIN_ARGS + extra)
+        finally:
+            CATTrainer.train_epoch = train_epoch
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rows_1_4()
+        others = {k: v for c in launch_counts()[2:] for k, v in c.items()}
+        hist = out["history"]
+        losses = [h["loss_gpt"] for h in hist]
+        res = {"steps": len(hist), "step_ms": [h["step_ms"] for h in hist],
+               **{k: out["summary"][k] for k in (
+                   "steady_ms_per_step", "samples_per_s")},
+               "lr": out["lr"],
+               "launches": launches, "int8_launches": others,
+               "launches_in_steps": in_steps[0] if in_steps else None,
+               "precompute_s": out["precompute_s"],
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2 ** 30,
+               "wall_s_incl_model_build": wall, "losses": losses,
+               "val": out["val"],
+               "finite": all(math.isfinite(v) for v in losses)
+               and all(math.isfinite(v["loss_gpt"]) for v in out["val"])}
+        log("cat-train", name, json.dumps(res))
+        if len(hist) != CAT_STEPS or not res["finite"] or len(in_steps) != 1:
+            raise AssertionError(f"cat train {name}: {len(hist)} steps in "
+                                 f"{len(in_steps)} epochs, finite "
+                                 f"{res['finite']}")
+        steps = in_steps[0]
+        if name == "full":
+            per_step = {k: v // CAT_STEPS for k, v in steps.items()}
+            expect_steps = {k: v * CAT_STEPS for k, v in per_step.items()}
+            expect = {k: v * encodes for k, v in per_step.items()}
+        else:
+            expect_steps = {k: 0 for k in steps}
+            expect = runs["full"]["launches"]
+        if not (per_step["vq_nearest"] == 1
+                and per_step["gn_stats"] == per_step["gn_apply"] > 0
+                and launches == expect and steps == expect_steps
+                and not any(launches[k] for k in ("gn_bwd_sums",
+                                                  "gn_bwd_dx"))
+                and not any(others.values())):
+            raise AssertionError(
+                f"cat train {name}: launches {launches} ({steps} in the "
+                f"steps) and {others}, expected {expect} ({expect_steps} in "
+                f"the steps): rows 1-3 only, the same in each of {encodes} "
+                "encodes, one vq_nearest an encode")
+        runs[name] = res
+    share = runs["full"]["steady_ms_per_step"] - runs["cached"][
+        "steady_ms_per_step"]
+    log("cat-train frozen towers", json.dumps({
+        "launches_per_step_full": per_step,
+        "full_minus_cached_ms": share,
+        "share_of_full": share / runs["full"]["steady_ms_per_step"]}))
+    return runs, per_step
+
+
+def cat_train_cross_check(b=2, seed=3):
+    """One full-pipeline step at cat_celebahq with the GPT at 2 layers, f32
+    everywhere (TF32 off), dropout 0 and the conditioning keep mask
+    injected, from one state on the card and on the CPU (plain versions)."""
+    import torch
+    from favae_tpu_torch.config import cat_celebahq
+    from favae_tpu_torch.data.pipeline import SyntheticDataset
+    from favae_tpu_torch.models.clip_text import BPETokenizer
+    from favae_tpu_torch.models.gpt import GPT
+    from favae_tpu_torch.models.txt_cond import build_cat
+    from favae_tpu_torch.train.cat_step import (CATAdamW, CATTrainState,
+                                                make_cat_train_step)
+    base = cat_celebahq()
+    cfg = dataclasses.replace(
+        base, gpt=dataclasses.replace(base.gpt, n_layer=2, dropout=0.0,
+                                      remat="none"),
+        vqgan=dataclasses.replace(base.vqgan, compute_dtype="float32"))
+    ds = SyntheticDataset(256, size=b, seed=seed, with_captions=True)
+    x = torch.from_numpy(np.stack([ds.get(i)[0] for i in range(b)]))
+    caps = [ds.get(i)[1] for i in range(b)]
+    keep = torch.tensor([True, False][:b])
+    lr = cfg.base_lr * b
+    runs, sd = {}, None
+    for dev in ("cpu", "cuda"):
+        cat = build_cat(cfg, dev, seed=seed,
+                        tokenizer=BPETokenizer(merges=["s y", "sy n"]))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            cat.gpt = GPT(cfg.gpt, dtype=torch.float32).to(dev)
+        if sd is None:
+            sd = {k: v.clone() for k, v in cat.gpt.state_dict().items()}
+        cat.gpt.load_state_dict(sd)
+        state = CATTrainState(cat=cat, opt=CATAdamW(cat.gpt, cfg),
+                              lr_schedule=lambda i: lr)
+        ids = cat.tokenize(caps)
+        seen, encode = [], cat.encode_to_z  # the step's own token ids
+        cat.encode_to_z = lambda x: seen.append(encode(x)) or seen[-1]
+        t0 = time.perf_counter()
+        state, m = make_cat_train_step()(
+            state, x.to(dev), ids, torch.Generator(device=dev),
+            cond_keep=keep.to(dev))
+        if len(seen) != 1:
+            raise AssertionError(f"the step encoded {len(seen)} times")
+        runs[dev] = {"loss": float(m["loss_gpt"]), "z": seen[0].cpu(),
+                     "s": time.perf_counter() - t0,
+                     "params": {k: v.detach().float().cpu() for k, v in
+                                cat.gpt.named_parameters()}}
+        del cat, state
+    ref, card = runs["cpu"], runs["cuda"]
+    err = torch.cat([(card["params"][k] - v).abs().flatten()
+                     for k, v in ref["params"].items()]) / lr
+    moved = torch.cat([(v - sd[k].float().cpu()).abs().flatten()
+                       for k, v in ref["params"].items()]) / lr
+    out = {"lr": lr, "loss_cpu": ref["loss"], "loss_card": card["loss"],
+           "loss_rel_err": abs(card["loss"] - ref["loss"]) / ref["loss"],
+           "token_id_agreement": (card["z"] == ref["z"]).float().mean()
+           .item(),
+           "param_max_err_lr": err.max().item(),
+           "param_mean_err_lr": err.mean().item(),
+           "param_mean_move_lr": moved.mean().item(),
+           "cpu_step_s": ref["s"], "card_step_s": card["s"]}
+    log("cat-train-cross-check", json.dumps(out))
+    if not (math.isfinite(card["loss"])
+            and out["loss_rel_err"] <= CAT_XCHECK["loss_rel"]
+            and out["param_max_err_lr"] <= CAT_XCHECK["param_max_lr"]
+            and out["param_mean_err_lr"] <= CAT_XCHECK["param_mean_lr"]
+            and out["token_id_agreement"] == 1.0):
+        raise AssertionError(f"cat train cross-check out of bounds "
+                             f"{CAT_XCHECK}")
+    return out
+
+
 def main():
     smi = nvidia_smi()
     log(smi)
@@ -1700,6 +1906,12 @@ def main():
     serve_graph_routes()
     serve_cross_check()
 
+    # phase 8: the CAT train slice through its entry point, and its
+    # cross-check
+    _, cat_step_launches = cat_train_slice()
+    torch.cuda.empty_cache()
+    cat_train_cross_check()
+
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
     gn_total = {f: weighted(gn_rows, census, "group_norm_act", f)
                 for f in ("ms", "device_ms", "plain_ms", "library_ms",
@@ -1711,7 +1923,7 @@ def main():
                       for f in ("ms", "library_ms")})
     log(json.dumps({"kernels": kernel_rows(
         vq_rows[0], gn_rows, census, bwd_rows, bwd_census,
-        train["launches"], recon_launches)
+        train["launches"], recon_launches, cat_step_launches)
         + int8_kernel_rows(int8_checks, serve_launches),
         "group_norm_act_per_batch": gn_total,
         "group_norm_act_backward_per_train_step": bwd_total}))

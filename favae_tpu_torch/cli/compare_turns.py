@@ -1,7 +1,7 @@
 """Time two checkouts of favae_tpu_torch on one card, in turns.
 
     python -m favae_tpu_torch.cli.compare_turns OLD_DIR NEW_DIR
-        [--parts serve train] [--out FILE]
+        [--parts serve train recon] [--out FILE]
 
 Each turn is a fresh process whose working directory is one checkout (so it
 builds and loads that checkout's kernels). The `serve` part:
@@ -17,7 +17,11 @@ every shape of a celebahq_expe5 train step's backward, weighted by its calls
 a step; the device kernels of one whole backward call (torch.profiler); and
 `cli.train_favae` with `chip_smoke.TRAIN_ARGS` (expe5, batch 16, 64 steps
 without the discriminator and 64 with it), its steady step ms (median over
-each epoch but its first two steps). The turns run OLD, NEW, NEW, OLD; the
+each epoch but its first two steps). The `recon` part: `cli.eval_favae`
+with `chip_smoke.SLICE_ARGS` (expe5, batch 16, 64 images; its steady batch
+ms) and the `recon` time of `chip_smoke.py` (CUDA events around 10 eager
+`reconstruct` calls of a batch of 16, host included), three times. The
+turns run OLD, NEW, NEW, OLD; the
 script prints one JSON line a turn and a last line that says whether
 `matmul_int8` gave the same bits in both checkouts (serve part), and writes
 all of it to FILE (default output/turns.json).
@@ -107,6 +111,20 @@ if "train" in parts:
     for on in (False, True):
         ms = [h["step_ms"] for h in hist if h["disc_on"] == on][2:]
         out[f"step_ms_disc_{'on' if on else 'off'}"] = statistics.median(ms)
+if "recon" in parts:
+    from favae_tpu_torch.cli import eval_favae
+    from favae_tpu_torch.config import celebahq_expe5
+    from favae_tpu_torch.data.pipeline import SyntheticDataset
+    from favae_tpu_torch.models.vqgan import build_model
+    batch_ms = eval_favae.main(cs.SLICE_ARGS)["batch_ms"]
+    model = build_model(celebahq_expe5(), "cuda", seed=0)
+    ds = SyntheticDataset(256, size=16)
+    x16 = torch.from_numpy(np.stack([ds.get(i) for i in range(16)])).cuda()
+    with torch.inference_mode():
+        recon = [cs.time_ms(lambda: model.reconstruct(x16), iters=10)
+                 for _ in range(3)]
+    out["recon"] = {"slice_steady_ms_per_batch": statistics.median(
+        batch_ms[1:]), "recon_ms_per_batch": recon}
 torch.save(bits, sys.argv[2])
 print("TURN " + json.dumps(out), flush=True)
 '''
@@ -117,7 +135,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new")
-    ap.add_argument("--parts", nargs="+", choices=("serve", "train"),
+    ap.add_argument("--parts", nargs="+", choices=("serve", "train", "recon"),
                     default=["serve", "train"])
     ap.add_argument("--out", default="output/turns.json")
     args = ap.parse_args(argv)

@@ -19,27 +19,58 @@ KV caches written in place.
 
 Master weights are f32; projections run in `dtype` (bf16 by default) as the
 JAX package's Dense layers do. `sample` casts each weight once, not once a
-token. Ported for inference: the training-only parts (dropout on the q/kv
-inputs, conditioning dropout with a random mask, `fold_ln_scale`) raise.
+token.
+
+Training (`forward(..., train=True)`, favae_tpu/models/gpt.py:203-529):
+dropout on the inputs of `to_q` and `to_kv` (separate masks; the FFN has
+none, as in the reference), conditioning dropout that drops a row's text
+with probability `cond_drop_prob`, `fold_ln_scale` (each pre-projection
+LayerNorm's gamma folded into the next projection's weight) and `remat`.
+Every random draw comes from the caller's `torch.Generator`, never from the
+global RNG: a block's masks are drawn before the block runs, so a block
+recomputed under activation checkpointing sees the same masks.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional
+import functools
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
 
 NEG_INF = -1e9  # large negative in place of -finfo.max (bf16-safe)
 
+# activation checkpointing of the blocks on the training path, as the JAX
+# package's `_scan_blocks` (favae_tpu/models/gpt.py:405-432): the products
+# whose outputs a selective policy saves (JAX's checkpoint_dots and
+# checkpoint_dots_with_no_batch_dims); everything else is recomputed
+_SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default),
+    "dots_nb": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+}
+REMAT_POLICIES = ("none", "full", "dots", "dots_nb")
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to favae_tpu_torch")
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dropout(x, keep: Optional[torch.Tensor], keep_prob: float):
+    """flax `nn.Dropout` with the mask given: kept entries scaled by
+    1/keep_prob in x's dtype, dropped ones zero."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 class FixedBetaLayerNorm(nn.Module):
@@ -53,10 +84,20 @@ class FixedBetaLayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.float(), self.gamma.shape, self.gamma, None, 1e-5)
 
+    def parts(self, x):
+        """(x normalised without gamma, f32; gamma), for a caller that folds
+        gamma into the next projection (favae_tpu/models/gpt.py:54-80)."""
+        return F.layer_norm(x.float(), self.gamma.shape, None, None,
+                            1e-5), self.gamma
+
 
 class Dense(nn.Linear):
     """Bias-free Linear computed in `compute_dtype` from an f32 master
-    weight. `cast` holds the weight already cast while a sampler runs."""
+    weight. `cast` holds the weight already cast while a sampler runs; a
+    forward that records gradients raises while it is set. `scale`, a
+    per-input-feature vector, is folded into the f32 weight first
+    (`W * scale[None, :]` in the (out, in) layout; favae_tpu's ScaledDense,
+    gpt.py:83-99)."""
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype):
@@ -64,9 +105,16 @@ class Dense(nn.Linear):
         self.compute_dtype = compute_dtype
         self.cast: Optional[torch.Tensor] = None
 
-    def forward(self, x):
-        w = self.cast if self.cast is not None else self.weight.to(
-            self.compute_dtype)
+    def forward(self, x, scale: Optional[torch.Tensor] = None):
+        if self.cast is not None:
+            if torch.is_grad_enabled() or scale is not None:
+                raise RuntimeError("Dense.cast is a sampler's detached copy: "
+                                   "leave cast_weights() before training")
+            w = self.cast
+        elif scale is not None:
+            w = (self.weight * scale[None, :]).to(self.compute_dtype)
+        else:
+            w = self.weight.to(self.compute_dtype)
         return F.linear(x.to(self.compute_dtype), w)
 
 
@@ -106,10 +154,11 @@ class MultiQueryAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  causal: bool = False, rel_pos_size: Optional[int] = None,
                  context_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 dropout: float = 0.0, fold_ln_scale: bool = False):
         super().__init__()
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
-        self.dtype = dtype
+        self.dtype, self.dropout, self.fold = dtype, dropout, fold_ln_scale
         inner = heads * dim_head
         self.norm = FixedBetaLayerNorm(dim)
         # index 0 is the reference's Dropout (to_q, to_kv) or Rearrange
@@ -150,10 +199,27 @@ class MultiQueryAttention(nn.Module):
         q = self.to_q(x_n) * (self.dim_head ** -0.5)
         return q.reshape(q.shape[0], q.shape[1], self.heads, self.dim_head)
 
-    def forward(self, x, *, context=None, context_mask=None):
-        x_n = self.norm(x).to(self.dtype)
-        q = self._q(x_n)
-        kv = self.to_kv(x_n if context is None else context)
+    def forward(self, x, *, context=None, context_mask=None,
+                keep_q: Optional[torch.Tensor] = None,
+                keep_kv: Optional[torch.Tensor] = None):
+        """`keep_q`, `keep_kv`: dropout keep masks of the inputs of to_q (the
+        normed x) and of to_kv (the normed x, or the context), or None
+        (favae_tpu/models/gpt.py:262-299). With `fold_ln_scale` the norm's
+        gamma goes into to_q's weight (and to_kv's in self-attention), and
+        the dropped inputs are f32, as in the JAX package."""
+        p = 1.0 - self.dropout
+        if self.fold:
+            x_n, g = self.norm.parts(x)
+            q_scale, kv_scale = g, (g if context is None else None)
+            ctx = x_n if context is None else context.float()
+        else:
+            x_n = self.norm(x).to(self.dtype)
+            q_scale = kv_scale = None
+            ctx = x_n if context is None else context.to(self.dtype)
+        q = self.to_q[1](_dropout(x_n, keep_q, p), q_scale) * (
+            self.dim_head ** -0.5)
+        q = q.reshape(q.shape[0], q.shape[1], self.heads, self.dim_head)
+        kv = self.to_kv[1](_dropout(ctx, keep_kv, p), kv_scale)
         rel_bias = None
         if self.rel_pos_bias is not None:
             rel_bias = self.rel_pos_bias(q.shape[1], kv.shape[1] + 1)[None]
@@ -195,13 +261,18 @@ class FeedForward(nn.Sequential):
     reference's Sequential (models/gpt_ca.py:140-148)."""
 
     def __init__(self, dim: int, mult: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 fold_ln_scale: bool = False):
         super().__init__(FixedBetaLayerNorm(dim), Dense(dim, dim * mult, dtype),
                          nn.GELU(), FixedBetaLayerNorm(dim * mult),
                          Dense(dim * mult, dim, dtype))
-        self.dtype = dtype
+        self.dtype, self.fold = dtype, fold_ln_scale
 
     def forward(self, x):
+        if self.fold:  # both gammas into the next weights (gpt.py:342-353)
+            h = self[1](*self[0].parts(x))
+            h = self[4](*self[3].parts(self[2](h)))
+            return h.to(x.dtype)
         h = self[1](self[0](x).to(self.dtype))
         h = self[4](self[3](self[2](h)).to(self.dtype))
         return h.to(x.dtype)
@@ -213,12 +284,13 @@ class CATBlock(nn.ModuleList):
 
     def __init__(self, cfg: GPTConfig, dtype: torch.dtype):
         c = cfg
+        kw = dict(dtype=dtype, dropout=c.dropout, fold_ln_scale=c.fold_ln_scale)
         super().__init__([
             MultiQueryAttention(c.n_embed, c.n_head, c.dim_head, causal=True,
-                                rel_pos_size=c.image_encoded_dim, dtype=dtype),
+                                rel_pos_size=c.image_encoded_dim, **kw),
             MultiQueryAttention(c.n_embed, c.n_head, c.dim_head, causal=False,
-                                context_dim=c.n_cond_embed, dtype=dtype),
-            FeedForward(c.n_embed, dtype=dtype)])
+                                context_dim=c.n_cond_embed, **kw),
+            FeedForward(c.n_embed, dtype=dtype, fold_ln_scale=c.fold_ln_scale)])
 
     @property
     def self_attn(self) -> MultiQueryAttention:
@@ -232,9 +304,21 @@ class CATBlock(nn.ModuleList):
     def ff(self) -> FeedForward:
         return self[2]
 
-    def forward(self, x, context, context_mask):
-        x = self.self_attn(x) + x
-        x = self.cross_attn(x, context=context, context_mask=context_mask) + x
+    def draw_masks(self, x, context, generator: torch.Generator,
+                   keep_prob: float) -> List[torch.Tensor]:
+        """Keep masks of this block's four dropouts, in the order the JAX
+        block applies them: self-attention q and kv inputs (both shaped as
+        x), cross-attention q input (as x) and kv input (as the context)."""
+        shapes = [x.shape] * 3 + [context.shape]
+        return [torch.rand(s, generator=generator, device=x.device)
+                < keep_prob for s in shapes]
+
+    def forward(self, x, context, context_mask,
+                masks: Sequence[Optional[torch.Tensor]] = (None,) * 4):
+        sq, skv, cq, ckv = masks
+        x = self.self_attn(x, keep_q=sq, keep_kv=skv) + x
+        x = self.cross_attn(x, context=context, context_mask=context_mask,
+                            keep_q=cq, keep_kv=ckv) + x
         return self.ff(x) + x
 
     def decode(self, x, cache, cross_kv, context_mask, pos: int):
@@ -250,8 +334,9 @@ class GPT(nn.Module):
 
     def __init__(self, cfg: GPTConfig, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if cfg.fold_ln_scale:
-            raise _not_ported("fold_ln_scale (a training reparameterisation)")
+        if cfg.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {cfg.remat!r}; one of "
+                             f"{REMAT_POLICIES}")
         self.cfg, self.dtype = cfg, dtype
         c = cfg
         self.tok_emb = nn.Embedding(c.vocab_size, c.n_embed)
@@ -297,13 +382,20 @@ class GPT(nn.Module):
                 m.cast = None
 
     def forward(self, image_token_ids, text_token_embeds, text_mask, *,
-                cond_drop_prob: Optional[float] = None, train: bool = False):
+                cond_drop_prob: Optional[float] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                cond_keep: Optional[torch.Tensor] = None):
         """Teacher-forced forward -> logits (b, n+1, vocab) (reference:
-        gpt_ca.py:284-331). Eval mode only: `cond_drop_prob` must be 0 (keep
-        the text) or >= 1 (drop it for every row)."""
+        gpt_ca.py:284-331; favae_tpu/models/gpt.py:500-529).
+
+        `cond_drop_prob` (default the config's): 0 keeps the text, >= 1
+        drops it for every row, in between keeps row b's text where
+        `cond_keep[b]`, or, without `cond_keep` (B,) bool, where
+        `rand(B) < 1 - cond_drop_prob` is drawn from `generator`. `train`
+        applies dropout `cfg.dropout` with masks drawn from `generator`
+        (after the conditioning draw, block by block) and checkpoints the
+        blocks by `cfg.remat` while gradients are recorded."""
         c = self.cfg
-        if train:
-            raise _not_ported("the GPT training forward (dropout, remat)")
         cond_drop_prob = (c.cond_drop_prob if cond_drop_prob is None
                           else cond_drop_prob)
         x = self._embed_tokens(image_token_ids)
@@ -312,15 +404,41 @@ class GPT(nn.Module):
         if cond_drop_prob >= 1:
             text_mask = torch.zeros_like(text_mask)
         elif cond_drop_prob > 0:
-            raise _not_ported("conditioning dropout with a random mask "
-                              "(0 < cond_drop_prob < 1)")
+            if cond_keep is None:
+                cond_keep = torch.rand(x.shape[0], generator=_need(generator),
+                                       device=x.device) < 1.0 - cond_drop_prob
+            text_mask = cond_keep[:, None].to(text_mask.device) & text_mask
         # the reference defines a cond_proj Linear but never calls it
         # (gpt_ca.py:259 vs :322): context enters to_kv raw
         x = self.init_norm(x).to(self.dtype)
         context = text_token_embeds.float()
+        drop = train and c.dropout > 0
+        remat = train and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, context, text_mask)
+            masks = (block.draw_masks(x, context, _need(generator),
+                                      1.0 - c.dropout)
+                     if drop else (None,) * 4)
+            args = (x, context, text_mask, masks)
+            x = self._checkpointed(block, *args) if remat else block(*args)
         return self._logits(self.final_norm(x))
+
+    def _checkpointed(self, block, *args):
+        """One block under `cfg.remat`: "none" stores every activation,
+        "full" recomputes the block in the backward, "dots" / "dots_nb" save
+        the products' outputs (batched ones too / only the non-batched
+        projections) and recompute the rest. The block holds no random draw
+        (its masks are arguments), so no RNG state is kept for the
+        recompute."""
+        policy = self.cfg.remat
+        if policy == "none":
+            return block(*args)
+        kw = {}
+        if policy in _SAVED_PRODUCTS:
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                functools.partial(_save_products, _SAVED_PRODUCTS[policy]))
+        return ckpt.checkpoint(block, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
 
     def forward_with_cond_scale(self, image_token_ids, text_token_embeds,
                                 text_mask, cond_scale: float = 3.0):
@@ -384,6 +502,14 @@ class GPT(nn.Module):
                     on_token(pos)
         g = c.image_encoded_dim
         return torch.stack(tokens, dim=1).reshape(b, g, g)
+
+
+def _need(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("a random draw of the GPT forward (dropout, or "
+                         "conditioning dropout without cond_keep) needs the "
+                         "caller's torch.Generator")
+    return generator
 
 
 def gumbel_sample(logits, generator: Optional[torch.Generator] = None,

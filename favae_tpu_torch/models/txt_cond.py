@@ -1,7 +1,10 @@
 """CAT composition: frozen FA-VAE + frozen CLIP text encoder + GPT (port of
 favae_tpu/models/txt_cond.py; reference: models/txt_cond_transformer.py:
-29-265). Ported for serving: text -> tokens -> image. The teacher-forced
-losses (`gpt_loss*`) belong to CAT training and are not ported yet.
+29-265). Serving: text -> tokens -> image (`sample_images`, in inference
+mode). Training: the teacher-forced CE (`gpt_loss`, and
+`gpt_loss_from_latents` over cached frozen-tower outputs); the frozen towers
+run without a graph (`torch.no_grad`, their parameters frozen), so their
+outputs can enter a training graph.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from favae_tpu_torch import resolve_device
 from favae_tpu_torch.config import CATConfig
@@ -36,14 +40,14 @@ class CATModel:
     def device(self) -> torch.device:
         return self.gpt.start_token.device
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_to_z(self, x):
         """Frozen FA-VAE encode -> token ids (B, L)
         (reference: txt_cond_transformer.py:134-139)."""
         _, indices, _ = self.favae.encode(x)
         return indices.reshape(indices.shape[0], -1)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_text_ids(self, text_ids):
         """CLIP text ids -> (token embeds (B, 77, D) f32, mask (B, 77))
         (reference: txt_cond_transformer.py:142-150: mask = ids > 0;
@@ -59,6 +63,36 @@ class CATModel:
             raise ValueError("no BPE merges file configured")
         ids = tokenize(self.tokenizer, texts, self.cfg.clip.context_length)
         return torch.from_numpy(ids).long().to(self.device)
+
+    def gpt_loss(self, x, text_ids, *, train: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 cond_keep: Optional[torch.Tensor] = None):
+        """Teacher-forced CE of the GPT over the frozen encodes of images x
+        (B, H, W, 3) in [-1, 1] and CLIP text ids (reference:
+        txt_cond_transformer.py:112-125; favae_tpu txt_cond.py:86-97)."""
+        z = self.encode_to_z(x)
+        embeds, mask = self.encode_text_ids(text_ids)
+        return self.gpt_loss_from_latents(z, embeds, mask, train=train,
+                                          generator=generator,
+                                          cond_keep=cond_keep)
+
+    def gpt_loss_from_latents(self, z, embeds, mask, *, train: bool = True,
+                              generator: Optional[torch.Generator] = None,
+                              cond_keep: Optional[torch.Tensor] = None):
+        """`gpt_loss` from the frozen towers' outputs: token ids z (B, L),
+        CLIP token embeds and mask. The input is z[:, :-1] (the GPT puts
+        its start token first); the CE in f32 is over all L positions
+        against z. Training draws dropout and conditioning dropout from
+        `generator` (`cond_keep` (B,) bool replaces the latter); the eval
+        loss is deterministic unless `cfg.eval_cond_drop`
+        (favae_tpu txt_cond.py:99-134)."""
+        drop = (self.cfg.gpt.cond_drop_prob
+                if (train or self.cfg.eval_cond_drop) else 0.0)
+        logits = self.gpt(z[:, :-1], embeds, mask, cond_drop_prob=drop,
+                          train=train, generator=generator,
+                          cond_keep=cond_keep)
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                               z.reshape(-1))
 
     def decode_to_img(self, index_grid):
         """Sampled (B, g, g) token grid -> image
@@ -173,13 +207,15 @@ def build_cat(cfg: CATConfig, device=None, seed: int = 0,
               tokenizer: Optional[BPETokenizer] = None) -> CATModel:
     """A CATModel in eval mode with random weights made from `seed`
     (PyTorch's default initialisers), on `device`: CUDA unless the caller
-    names another. Load converted or reference weights into `.favae`,
-    `.clip` and `.gpt` afterwards."""
+    names another, the FA-VAE and CLIP frozen. Load converted or reference
+    weights into `.favae`, `.clip` and `.gpt` afterwards."""
     dev = resolve_device(device)
     favae = build_model(cfg.vqgan, dev, seed=seed)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed + 1)
         clip = CLIPTextEncoder(cfg.clip)
         gpt = GPT(cfg.gpt)
+    favae.requires_grad_(False)
+    clip.requires_grad_(False)
     return CATModel(cfg=cfg, favae=favae, clip=clip.to(dev).eval(),
                     gpt=gpt.to(dev).eval(), tokenizer=tokenizer)

@@ -1,26 +1,32 @@
 """Device time by kernel group from a `torch.profiler` run on the card.
 
-Shared by `cli/profile_recon.py` and the trainer's profiler window: sums the
-device time of every CUDA event by kernel name, folds the names into groups
-and reports the busy share of the host-clock window.
+Shared by `cli/profile_recon.py` and the trainers' profiler window
+(`ProfileWindow`): sums the device time of every CUDA event by kernel
+name, folds the names into groups and reports the busy share of the
+host-clock window. `StepClock` times the trainers' steps.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict
+import json
+import os
+import time
+from typing import Dict, List, Optional
 
 import torch
 
-# kernel-name fragments -> group; the first match wins
+# kernel-name fragments -> group; the first match wins (the optimizer's
+# `multi_tensor_apply_kernel` before the GroupNorm's `_apply_kernel`)
 _GROUPS = (
     ("vq_nearest (CUDA)", ("vq_argmax",)),
+    ("optimizer", ("adam", "Adam", "multi_tensor")),
     ("group norm fwd (Triton)", ("_stats_kernel", "_apply_kernel")),
     ("group norm bwd (CUDA, Triton)", ("gn_bwd_sums", "_bwd_dx_kernel")),
     ("conv / matmul", ("conv", "gemm", "xmma", "cutlass", "sm90_", "cudnn",
                        "implicit", "nchwToNhwc", "nhwcToNchw", "wgrad",
-                       "dgrad")),
-    ("optimizer", ("adam", "Adam", "multi_tensor")),
+                       "dgrad", "nvjet")),
+    ("layer norm", ("layer_norm", "GammaBeta")),
     ("reduce", ("reduce",)),
     ("elementwise / copy", ("elementwise", "vectorized", "copy", "Memcpy",
                             "Memset", "cat", "index", "upsample", "pad",
@@ -61,3 +67,76 @@ def summarize(prof: torch.profiler.profile, wall_ms: float, steps: int,
                          "calls_per_step": calls[name] / steps}
                         for name, ms in by_kernel.most_common(top)],
     }
+
+
+class StepClock:
+    """Start times of steps: CUDA events on the card, host clock else."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> List[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks,
+                                                      self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+class ProfileWindow:
+    """`torch.profiler` over steps [2, 5) of an epoch (`STEPS`): `at_step`
+    before each step opens and closes the window, `close` after the epoch
+    closes one the epoch was too short to close. Writes the Chrome trace
+    to `save_dir` and, on the card, `summary` (`summarize`) to
+    `profile_summary.json` beside it."""
+
+    STEPS = (2, 5)
+
+    def __init__(self, device: torch.device, save_dir: str):
+        self.device, self.save_dir = device, save_dir
+        self.prof: Optional[torch.profiler.profile] = None
+        self.summary: Optional[Dict] = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def at_step(self, step: int) -> None:
+        if step == self.STEPS[0]:
+            self._sync()
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif step == self.STEPS[1]:
+            self.close(step)
+
+    def close(self, steps_done: int) -> None:
+        if self.prof is None:
+            return
+        self._sync()
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.save_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.save_dir,
+                                              "profile_trace.json"))
+        if self.device.type != "cuda":
+            return
+        self.summary = summarize(prof, wall_ms, steps_done - self.STEPS[0])
+        self.summary["device"] = torch.cuda.get_device_name(0)
+        with open(os.path.join(self.save_dir, "profile_summary.json"),
+                  "w") as f:
+            json.dump(self.summary, f, indent=1)
+        print("profile " + json.dumps(self.summary), flush=True)

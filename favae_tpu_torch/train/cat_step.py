@@ -1,0 +1,185 @@
+"""CAT train step and optimizer: AdamW with minGPT-style decay masking
+(port of favae_tpu/train/cat_step.py).
+
+reference: cat_scripts/train_cat.py:69-109 (hot loop) and
+models/txt_cond_transformer.py:238-265 (configure_optimizers). Decay rules:
+
+* no weight decay: the weights of the nn.Embedding modules (the token
+  embedding, which is also the tied logits head, and every RelPosBias2d
+  table) and anything named "bias";
+* weight decay 0.01: everything else, including the LayerNorm gammas, the
+  axial positional embeddings, the start token and the null kv (the
+  reference's filter excludes only torch's own LayerNorm and Embedding).
+
+`CATAdamW` is one hand-written update over lists of tensors
+(`torch._foreach_*`), as optax computes it: the moments update in f32 from
+their stored values (b * m in the storage dtype, as optax's weakly typed
+product), the bias correction reads the f32 moments before they are cast
+to their storage dtypes (`adam_mu_dtype`, `adam_nu_dtype`), and the cast
+happens once at the end; with f32 moments it is `optax.adamw` (and
+`torch.optim.AdamW`): p <- p - lr (m^/(sqrt(v^) + eps) + wd p). The
+frozen FA-VAE and CLIP encodes run without a graph inside the
+full-pipeline step; the latent step starts from their cached outputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from favae_tpu_torch.config import CATConfig
+from favae_tpu_torch.models.gpt import GPT
+from favae_tpu_torch.models.txt_cond import CATModel
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def decay_mask(gpt: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> True where weight decay applies."""
+    embeds = {f"{n}.weight" if n else "weight"
+              for n, m in gpt.named_modules() if isinstance(m, nn.Embedding)}
+    return {n: not (n in embeds or n.split(".")[-1] == "bias")
+            for n, _ in gpt.named_parameters()}
+
+
+class CATAdamW:
+    """AdamW over a GPT's parameters with `decay_mask`, b1 0.9, b2 0.95,
+    eps 1e-8, weight decay 0.01 (the CATConfig's), and storage dtypes for
+    the two moments. `step(lr)` applies one update from the parameters'
+    `.grad`."""
+
+    def __init__(self, gpt: GPT, cfg: CATConfig, eps: float = 1e-8):
+        mask = decay_mask(gpt)
+        named = [(n, p) for n, p in gpt.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.decayed = [i for i, (n, _) in enumerate(named) if mask[n]]
+        self.b1, self.b2, self.eps = cfg.adam_b1, cfg.adam_b2, eps
+        self.weight_decay = cfg.weight_decay
+        self.mu_dtype = getattr(torch, cfg.adam_mu_dtype)
+        self.nu_dtype = getattr(torch, cfg.adam_nu_dtype)
+        self.mu = [torch.zeros_like(p, dtype=self.mu_dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=self.nu_dtype)
+                   for p in self.params]
+        self.count = 0
+
+    @staticmethod
+    def _decayed(store: List[torch.Tensor], b: float) -> List[torch.Tensor]:
+        if store[0].dtype == torch.float32:
+            torch._foreach_mul_(store, b)
+            return store
+        b = float(torch.tensor(b, dtype=store[0].dtype))
+        return [m.float() for m in torch._foreach_mul(store, b)]
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        grads = [p.grad for p in self.params]
+        self.count += 1
+        # (1 - b) g + b m and (1 - b) g^2 + b v (optax's update_moment): b m
+        # in the storage dtype with b rounded to it, as optax's weakly typed
+        # product is, and the sum in f32; in place where the store is f32
+        mu = self._decayed(self.mu, self.b1)
+        nu = self._decayed(self.nu, self.b2)
+        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        # bias corrections as optax forms them: f32 powers of f32 decays
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.int32(self.count))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.int32(self.count))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, denom)
+        del denom
+        if self.weight_decay and self.decayed:
+            torch._foreach_add_([upd[i] for i in self.decayed],
+                                [self.params[i] for i in self.decayed],
+                                alpha=self.weight_decay)
+        torch._foreach_add_(self.params, upd, alpha=-lr)
+        if mu is not self.mu:
+            torch._foreach_copy_(self.mu, mu)
+        if nu is not self.nu:
+            torch._foreach_copy_(self.nu, nu)
+
+
+@dataclasses.dataclass
+class CATTrainState:
+    cat: CATModel
+    opt: CATAdamW
+    lr_schedule: Callable[[int], float]
+    step: int = 0
+
+
+def _split(batch: Sequence[torch.Tensor], grad_accum: int
+           ) -> List[Tuple[torch.Tensor, ...]]:
+    b = batch[0].shape[0]
+    if b % grad_accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}")
+    return list(zip(*(t.chunk(grad_accum) for t in batch)))
+
+
+def _train_step(state: CATTrainState, loss_for: Callable, batch, *,
+                generator: torch.Generator, cond_keep, grad_accum: int
+                ) -> Tuple[CATTrainState, Metrics]:
+    """value and grad of `loss_for(*micro_batch, cond_keep)` over
+    `grad_accum` equal micro-batches (grads and loss summed, then divided
+    by `grad_accum`, favae_tpu/train/cat_step.py:174-205), then one AdamW
+    update at the schedule's lr of this update."""
+    params = state.opt.params
+    for p in params:
+        p.grad = None
+    keeps = (cond_keep.chunk(grad_accum) if cond_keep is not None
+             else (None,) * grad_accum)
+    total = None
+    for micro, keep in zip(_split(batch, grad_accum), keeps):
+        loss = loss_for(*micro, generator=generator, cond_keep=keep)
+        loss.backward()
+        total = loss.detach() if total is None else total + loss.detach()
+    if grad_accum > 1:
+        total = total / grad_accum
+        torch._foreach_div_([p.grad for p in params], grad_accum)
+    state.opt.step(state.lr_schedule(state.step))
+    state.step += 1
+    return state, {"loss_gpt": total}
+
+
+def make_cat_train_step(grad_accum: int = 1) -> Callable:
+    """step(state, x, text_ids, generator, cond_keep=None): images (B, H, W,
+    3) in [-1, 1] and CLIP text ids (B, 77) through the frozen towers and
+    the GPT. `cond_keep` (B,) bool replaces the conditioning draw."""
+
+    def train_step(state, x, text_ids, generator, cond_keep=None):
+        return _train_step(state, state.cat.gpt_loss, (x, text_ids),
+                           generator=generator, cond_keep=cond_keep,
+                           grad_accum=grad_accum)
+
+    return train_step
+
+
+def make_cat_latent_train_step(grad_accum: int = 1) -> Callable:
+    """step(state, z, embeds, mask, generator, cond_keep=None) over cached
+    latents (`CATModel.gpt_loss_from_latents`): the frozen towers do not
+    run, and with the same latents the update is the full step's."""
+
+    def train_step(state, z, embeds, mask, generator, cond_keep=None):
+        return _train_step(state, state.cat.gpt_loss_from_latents,
+                           (z, embeds, mask), generator=generator,
+                           cond_keep=cond_keep, grad_accum=grad_accum)
+
+    return train_step
+
+
+@torch.no_grad()
+def cat_eval_step(state: CATTrainState, x, text_ids) -> Metrics:
+    return {"loss_gpt": state.cat.gpt_loss(x, text_ids, train=False)}
+
+
+@torch.no_grad()
+def cat_latent_eval_step(state: CATTrainState, z, embeds, mask) -> Metrics:
+    return {"loss_gpt": state.cat.gpt_loss_from_latents(z, embeds, mask,
+                                                        train=False)}

@@ -11,9 +11,6 @@ and raises for those options.
 
 from __future__ import annotations
 
-import json
-import os
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -22,33 +19,9 @@ import torch
 from favae_tpu_torch import resolve_device
 from favae_tpu_torch.config import LossConfig, TrainConfig, VQGANConfig
 from favae_tpu_torch.models.quantizer import check_ported
+from favae_tpu_torch.profiling import ProfileWindow, StepClock
 from favae_tpu_torch.train.favae_state import FavaeTrainState
 from favae_tpu_torch.train.favae_step import make_eval_step, make_train_step
-
-PROFILE_STEPS = (2, 5)  # the profiler window: steps [2, 5) of the first epoch
-
-
-class _StepClock:
-    """Start times of steps: CUDA events on the card, host clock else."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: List = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals_ms(self) -> List[float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks,
-                                                      self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
 class FavaeTrainer:
@@ -94,17 +67,15 @@ class FavaeTrainer:
         disc_on = epoch >= self.loss_cfg.disc_start_epochs
         ffl_on = epoch >= self.loss_cfg.ffl_start_epochs
         step_fn = self._steps[(disc_on, ffl_on)]
-        profile = self.enable_profiler and epoch == self.start_epoch
+        window = (ProfileWindow(self.device, self.save_dir)
+                  if self.enable_profiler and epoch == self.start_epoch
+                  else None)
         loader.set_epoch(epoch)
-        clock = _StepClock(self.device)
+        clock = StepClock(self.device)
         pending: List[Dict[str, torch.Tensor]] = []
-        prof = None
         for step, x in enumerate(loader):
-            if profile and step == PROFILE_STEPS[0]:
-                prof, t0 = self._start_profiler(), time.perf_counter()
-            elif prof is not None and step == PROFILE_STEPS[1]:
-                self._finish_profiler(prof, t0, step - PROFILE_STEPS[0])
-                prof = None
+            if window is not None:
+                window.at_step(step)
             clock.mark()
             self.state, m = step_fn(self.state, self._to_device(x))
             pending.append({k: v for k, v in m.items() if v.dim() == 0})
@@ -114,8 +85,9 @@ class FavaeTrainer:
                     if v.dim() == 0 and (k.startswith("loss")
                                          or k == "weight_d")), flush=True)
         clock.mark()
-        if prof is not None:  # an epoch shorter than the window
-            self._finish_profiler(prof, t0, len(pending) - PROFILE_STEPS[0])
+        if window is not None:
+            window.close(len(pending))
+            self.profile = window.summary or self.profile
         step_ms = clock.intervals_ms()
         for i, scalars in enumerate(pending):
             row = {k: float(v) for k, v in zip(
@@ -124,39 +96,6 @@ class FavaeTrainer:
                        step_ms=step_ms[i])
             self.history.append(row)
         self._log_sigmas(self.history[-1] if self.history else {})
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize()
-
-    def _start_profiler(self) -> torch.profiler.profile:
-        self._sync()
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-        return prof
-
-    def _finish_profiler(self, prof: torch.profiler.profile, t0: float,
-                         steps: int) -> None:
-        """Close the window; write its Chrome trace and, on the card, the
-        summary by kernel group (`profiling.summarize`)."""
-        from favae_tpu_torch.profiling import summarize
-        self._sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.__exit__(None, None, None)
-        os.makedirs(self.save_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.save_dir,
-                                              "profile_trace.json"))
-        if self.device.type != "cuda":
-            return
-        self.profile = summarize(prof, wall_ms, steps)
-        self.profile["device"] = torch.cuda.get_device_name(0)
-        with open(os.path.join(self.save_dir, "profile_summary.json"),
-                  "w") as f:
-            json.dump(self.profile, f, indent=1)
-        print("profile " + json.dumps(self.profile), flush=True)
 
     def _log_sigmas(self, row: Dict[str, float]) -> None:
         """The learned DSL sigmas (reference: train_favae.py:129-147)."""

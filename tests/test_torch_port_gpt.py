@@ -156,16 +156,34 @@ def test_gumbel_sample_draws_from_the_generator():
 
 
 def test_training_only_parts_raise(gpts):
-    _, _, ours = gpts
+    """The three calls that raised before CAT training was ported now run:
+    the training forward, the default cond_drop_prob 0.25 (a random keep
+    mask) and fold_ln_scale. What still raises is a random draw without
+    the caller's generator: the port never draws from the global RNG."""
+    _, params, ours = gpts
     ids, embeds, mask = _inputs()
     args = (torch.from_numpy(ids), torch.from_numpy(embeds),
             torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ours(*args, train=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ours(*args)                      # cfg.cond_drop_prob = 0.25, no mask
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tgpt.GPT(tcfg.GPTConfig(**SMALL, fold_ln_scale=True))
+    gen = torch.Generator().manual_seed(0)
+    assert ours(*args, train=True, generator=gen).shape == (3, 16, 64)
+    with torch.no_grad():
+        assert ours(*args, generator=gen).shape == (3, 16, 64)
+    folded = tgpt.GPT(tcfg.GPTConfig(**SMALL, fold_ln_scale=True),
+                      dtype=torch.float32).eval()
+    folded.load_state_dict(ours.state_dict(), strict=True)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            folded(*args, cond_drop_prob=0.0).numpy(),
+            ours(*args, cond_drop_prob=0.0).numpy(), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="Generator"):
+        ours(*args, train=True)          # cfg.cond_drop_prob = 0.25, no mask
+    with pytest.raises(ValueError, match="Generator"):
+        ours(*args)
+
+
+def test_unknown_remat_raises():
+    with pytest.raises(ValueError, match="unknown remat policy 'some'"):
+        tgpt.GPT(tcfg.GPTConfig(**SMALL, remat="some"))
 
 
 def test_reference_cat_checkpoint_loads(gpts, tmp_path):
