@@ -28,11 +28,21 @@ Phases (any failure exits non-zero):
    zeroed just before and read just after;
 5. train slice: `favae_tpu_torch.cli.train_favae` at celebahq_expe5, batch
    16, 256 px, bf16, two epochs of 64 synthetic batches (the discriminator
-   from the second) plus validation, counts zeroed just before and read
-   just after and held to what the census implies;
+   from the second) plus validation, saving `latest` and `best` after each
+   epoch, then `--resume --epochs 3` for the third, counts zeroed just
+   before each run and read just after and held to what the census
+   implies; each checkpoint timed, read back onto the card and compared
+   with the state it saved, bit for bit; then `cli.export_torch` of
+   `best` and `cli.eval_favae` on the `.pt` with rFID (a seeded
+   pytorch-fid-layout Inception file) and 64 saved reconstructions, and on
+   the checkpoint directory without Inception (the same psnr);
 6. cross-checks: the same weights reconstructing 2 images, and taking one
    train step on 2 images at 64 px, on the card (bf16, and f32 with TF32
-   off) and on the CPU in f32 through the plain versions;
+   off) and on the CPU in f32 through the plain versions; two epochs of 4
+   steps at 64 px, B=2, f32, against one epoch, a checkpoint, a resume and
+   the second (TRAIN_XCHECK's bounds, and whether the bits matched); the
+   InceptionV3 features of 2 images at 256 px on the card (f32 and bf16)
+   against the CPU (f32);
 7. serve slice: `favae_tpu_torch.cli.generate` at cat_celebahq, 2 prompts x
    2 images, seeded random weights, through its three engines (exact bf16,
    `--quantized` on the whole-step kernel, `--quantized --gpt_name
@@ -46,19 +56,24 @@ Phases (any failure exits non-zero):
 8. CAT train slice: `favae_tpu_torch.cli.train_cat` at cat_celebahq
    (gpt2_medium, CLIP ViT-L/14 text, f16 cosine FA-VAE), batch 16, 256 px,
    synthetic captions, seeded random weights, one short epoch on the full
-   pipeline (the frozen encode, rows 1-3, in every step) and one with
-   `--cache_latents` (the encode once, before the steps), counts zeroed
-   just before each run and held to the encodes each run makes; then one
-   step at gpt2_medium width and 2 layers, B=2, f32, from one state on the
-   card and on the CPU.
-It prints a `{"kernels": [...]}` line, the card's name and power limit, and
-last `{"ok": true, "device": {...}}`. TF32 is off for matmuls and cuDNN.
+   pipeline (the frozen encode, rows 1-3, in every step), saving, with a
+   sample preview at global step 0 and after validation (an FA-VAE decode
+   each), a second epoch resumed from `latest`, `cli.export_torch --cat`
+   of `best` and `cli.generate` on the `.pt` and on the directory (the
+   same tokens), and one epoch with `--cache_latents` (the encode once,
+   before the steps), counts zeroed just before each run and held to the
+   encodes and previews each run makes; then one step at gpt2_medium
+   width and 2 layers, B=2, f32, from one state on the card and on the CPU.
+It prints each phase's seconds, a `{"kernels": [...]}` line, the card's
+name and power limit, and last `{"ok": true, "device": {...}}`. TF32 is
+off for matmuls and cuDNN.
 """
 
 import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -92,6 +107,11 @@ TRAIN_ARGS = ["--ds", "chip_smoke", "--output_dir", str(ROOT / "output"),
 TRAIN_XCHECK = {"loss_rel": 1e-3, "state_rel": 1e-3, "param_max_lr": 2.1,
                 "param_mean_lr": 0.01}
 BF16_BAND = {"rel": 0.1, "abs": 0.02}
+# InceptionV3 features on the card against the CPU (f32), relative to the
+# largest feature: f32 with TF32 off differs by summation order over the
+# 94 convolutions (1.5e-6 measured on an H100), bf16 by its roundings
+# (0.013 measured), held to a band
+INCEPTION_XCHECK = {"f32": 1e-4, "bf16": 0.1}
 # cross-check bounds of a card model (bf16, and f32 with TF32 off) against
 # f32 on the CPU through the plain versions; see cross_check(). Measured on
 # an H100 with seeded random weights: bf16 decode 42.2 dB, 496/512 codes
@@ -1144,9 +1164,63 @@ def int8_kernel_rows(checks, launches):
     return rows
 
 
-def train_slice(per_step_launches, recon_gn_calls):
+def same_tree(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers equal bit for bit (each
+    tensor compared on the second one's device)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.to(b.device), b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def checking_saves(fn, events):
+    """Run `fn` with every `CheckpointManager.on_epoch_end` timed (one host
+    copy, then latest and, on improvement, best), `latest` read back onto
+    the card (timed) and compared with the state it saved, tensor for
+    tensor; one dict an event goes to `events`."""
+    import torch
+    from favae_tpu_torch.utils.checkpoint import (STATE_FILE,
+                                                  CheckpointManager,
+                                                  restore_checkpoint)
+    orig = CheckpointManager.on_epoch_end
+
+    def checked(self, epoch, score, state, is_last=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(self, epoch, score, state, is_last)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, meta = restore_checkpoint(self.latest_path, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        best = pathlib.Path(self.best_path) / STATE_FILE
+        events.append({
+            "epoch": epoch, "meta": meta, "save_s": save_s,
+            "load_s": load_s, "best_written": score == self.best_score,
+            "state_pt_mib": (pathlib.Path(self.latest_path) / STATE_FILE)
+            .stat().st_size / 2 ** 20,
+            "best_exists": best.exists(),
+            "restored_bitwise_equal": same_tree(state, back)})
+        del back
+
+    CheckpointManager.on_epoch_end = checked
+    try:
+        return fn()
+    finally:
+        CheckpointManager.on_epoch_end = orig
+
+
+def train_slice(per_step_launches, recon_gn_calls, name="train", extra=()):
     """`cli.train_favae` at expe5 B=16 with the counts zeroed just before;
-    the launches must equal what the census implies."""
+    the launches must equal what the census implies. Each epoch's
+    checkpoint is timed, read back and compared (`checking_saves`)."""
     import torch
     from favae_tpu_torch.cli import train_favae
     from favae_tpu_torch.ops import gn, vq
@@ -1154,8 +1228,10 @@ def train_slice(per_step_launches, recon_gn_calls):
         for k in counts:
             counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
+    saves = []
     t0 = time.perf_counter()
-    out = train_favae.main(TRAIN_ARGS)
+    out = checking_saves(lambda: train_favae.main(TRAIN_ARGS + list(extra)),
+                         saves)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**vq.LAUNCHES, **gn.LAUNCHES}
@@ -1172,32 +1248,109 @@ def train_slice(per_step_launches, recon_gn_calls):
 
     def steady(disc_on):  # all but the first two steps of the epoch
         ms = [h["step_ms"] for h in hist if h["disc_on"] == disc_on][2:]
-        return statistics.median(ms)
+        return statistics.median(ms) if ms else None
 
     losses = sorted({k for h in hist for k in h
                      if k.startswith("loss") or k == "weight_d"})
     finite = all(math.isfinite(h[k]) for h in hist for k in losses if k in h)
     res = {
+        "start_epoch": out["start_epoch"],
+        "epochs": sorted({h["epoch"] for h in hist}),
         "steps_disc_off": steps_off, "steps_disc_on": steps_on,
         "val_batches": val_batches, "launches": launches,
         "expected_launches": expect,
-        "step_ms_disc_off": steady(False), "step_ms_disc_on": steady(True),
-        "imgs_per_s_disc_off": 16e3 / steady(False),
-        "imgs_per_s_disc_on": 16e3 / steady(True),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "wall_s_incl_model_build": wall,
         "first_step": {k: hist[0][k] for k in losses if k in hist[0]},
         "last_step": {k: hist[-1][k] for k in losses if k in hist[-1]},
         "weight_d_range": [min(h["weight_d"] for h in hist if h["disc_on"]),
                            max(h["weight_d"] for h in hist if h["disc_on"])],
-        "val": val, "all_losses_finite": finite}
-    log("train", json.dumps(res))
+        "val": val, "all_losses_finite": finite, "checkpoints": saves}
+    for key, disc_on in (("disc_off", False), ("disc_on", True)):
+        ms = steady(disc_on)
+        res[f"step_ms_{key}"] = ms
+        if ms:
+            res[f"imgs_per_s_{key}"] = 16e3 / ms
+    log(name, json.dumps(res))
     if not finite:
         raise AssertionError("non-finite training losses")
     if launches != expect or not all(launches.values()):
-        raise AssertionError(f"train slice launched {launches}, the census "
+        raise AssertionError(f"{name} slice launched {launches}, the census "
                              f"implies {expect}")
+    epochs = res["epochs"]
+    if not (len(saves) == len(epochs)
+            and all(e["restored_bitwise_equal"] and e["best_exists"]
+                    for e in saves)
+            and [e["meta"]["epoch"] for e in saves] == [
+                e + 1 for e in epochs]):
+        raise AssertionError(f"{name}: checkpoints {saves} after epochs "
+                             f"{epochs}")
     return res
+
+
+def export_and_evaluate(recon_gn_calls):
+    """`cli.export_torch` of the train slice's `best`, then
+    `cli.eval_favae --torch_ckpt` on the `.pt` with rFID (a seeded
+    pytorch-fid-layout Inception file written here) and saved
+    reconstructions, counts zeroed just before and read just after; and
+    `--orbax_ckpt` on the directory without Inception, which must give the
+    same psnr. The Inception file has pytorch-fid's layout (its `fc`
+    included), He-scaled random convolutions and fresh BatchNorm
+    statistics."""
+    import torch
+    from favae_tpu_torch.cli import eval_favae, export_torch
+    from favae_tpu_torch.models.inception import InceptionV3FID
+    from favae_tpu_torch.ops import gn, vq
+    run = ROOT / "output" / "chip_smoke"
+    pt, recons = run / "best.pt", run / "recons"
+    inc = ROOT / "output" / "pt_inception_seeded.pt"
+    t0 = time.perf_counter()
+    export_torch.main(["--orbax_ckpt", str(run / "best"), "--out", str(pt)])
+    export_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(0)
+    sd = InceptionV3FID(torch.float32).state_dict()
+    for k, v in sd.items():
+        if k.endswith("conv.weight"):  # He-scaled: ReLU keeps the scale
+            sd[k] = torch.randn(v.shape, generator=gen) * math.sqrt(
+                2.0 / v[0].numel())
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1008, 2048), torch.zeros(1008)
+    torch.save(sd, inc)
+    shutil.rmtree(recons, ignore_errors=True)
+    out = {"export_s": export_s, "pt_mib": pt.stat().st_size / 2 ** 20}
+    for name, extra in (
+            ("rfid", ["--torch_ckpt", str(pt), "--inception_ckpt", str(inc),
+                      "--save_recons", str(recons)]),
+            ("dir", ["--orbax_ckpt", str(run / "best")])):
+        for counts in (vq.LAUNCHES, gn.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        m = eval_favae.main(SLICE_ARGS + extra)
+        torch.cuda.synchronize()
+        launches = {**vq.LAUNCHES, **gn.LAUNCHES}
+        batches = len(m["batch_ms"])
+        out[name] = {
+            **{k: m[k] for k in m if k != "batch_ms"},
+            "batch_ms": m["batch_ms"],
+            "steady_ms_per_batch": statistics.median(m["batch_ms"][1:]),
+            "launches": launches}
+        expect = {"vq_nearest": batches, "gn_stats": batches * recon_gn_calls,
+                  "gn_apply": batches * recon_gn_calls, "gn_bwd_sums": 0,
+                  "gn_bwd_dx": 0}
+        if launches != expect or m["images"] != 64:
+            raise AssertionError(f"eval {name}: launches {launches} over "
+                                 f"{m['images']} images, expected {expect}")
+    pngs = sorted(p.name for p in recons.glob("*.png"))
+    out.update(pngs=len(pngs),
+               inception_ms_per_batch=out["rfid"]["steady_ms_per_batch"]
+               - out["dir"]["steady_ms_per_batch"],
+               psnr_bits_equal=out["rfid"]["psnr"] == out["dir"]["psnr"])
+    log("export-eval", json.dumps(out))
+    if not (math.isfinite(out["rfid"]["rfid"]) and len(pngs) == 64
+            and abs(out["rfid"]["psnr"] - out["dir"]["psnr"])
+            <= 1e-6 * abs(out["dir"]["psnr"])):
+        raise AssertionError("export-eval: rfid not finite, PNGs missing or "
+                             "the exported file evaluates otherwise")
+    return out
 
 
 def train_cross_check():
@@ -1251,23 +1404,8 @@ def train_cross_check():
         out[name] = {"loss_rel_err": rel,
                      "finite": all(math.isfinite(v)
                                    for v in run["metrics"].values())}
-    state_err, param_err = {}, []
-    for k, v in runs["card_f32"]["state"].items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        r = ref["state"][k]
-        err = (v - r).abs()
-        if k.startswith("quantizer.") or "running_" in k:
-            # relative to the tensor's largest entry
-            state_err[k] = err.max().item() / max(r.abs().max().item(), 1e-30)
-        else:
-            param_err.append(err.flatten() / lr)
-    param_err = torch.cat(param_err)
-    worst = max(state_err, key=state_err.get)
-    out["card_f32"].update(
-        state_max_rel_err=state_err[worst], state_worst=worst,
-        param_max_err_lr=param_err.max().item(),
-        param_mean_err_lr=param_err.mean().item())
+    out["card_f32"].update(state_errors(ref["state"],
+                                        runs["card_f32"]["state"], lr))
     out["metrics"] = {n: runs[n]["metrics"] for n in runs}
     f32, lim = out["card_f32"], TRAIN_XCHECK
     bf16_out = [k for k, v in runs["card_bf16"]["metrics"].items()
@@ -1285,6 +1423,136 @@ def train_cross_check():
             and not bf16_out):
         raise AssertionError(f"train cross-check out of bounds "
                              f"{TRAIN_XCHECK}, bf16 band {BF16_BAND}")
+    return out
+
+
+def state_errors(ref, state, lr):
+    """A model state_dict against a reference one (both on the CPU, f32):
+    the codebook EMA and BatchNorm statistics relative to each tensor's
+    largest entry, the parameters in units of `lr`."""
+    import torch
+    state_err, param_err = {}, []
+    for k, v in state.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        err = (v - ref[k]).abs()
+        if k.startswith("quantizer.") or "running_" in k:
+            state_err[k] = err.max().item() / max(ref[k].abs().max().item(),
+                                                  1e-30)
+        else:
+            param_err.append(err.flatten() / lr)
+    param_err = torch.cat(param_err)
+    worst = max(state_err, key=state_err.get)
+    return {"state_max_rel_err": state_err[worst], "state_worst": worst,
+            "param_max_err_lr": param_err.max().item(),
+            "param_mean_err_lr": param_err.mean().item()}
+
+
+def resume_cross_check(steps=4, deterministic=True):
+    """Two epochs of `steps` steps at expe5 width, 64 px, B=2, f32 (TF32
+    off), the discriminator from the second, uninterrupted; against one
+    epoch, a checkpoint, a new trainer resumed from it and the second
+    epoch. With `deterministic`, cuDNN and PyTorch pick deterministic
+    algorithms (cuDNN's weight gradients and the codebook's `index_add_`
+    otherwise add in a varying order, and eight GAN steps amplify that
+    past any bound) and the run is held to TRAIN_XCHECK; without, the
+    differences are printed as the card's run-to-run noise. Whether the
+    bits matched is printed."""
+    import torch
+    from favae_tpu_torch.config import (TrainConfig, celebahq_expe5,
+                                        celebahq_expe5_losses)
+    from favae_tpu_torch.data.pipeline import DataLoader, SyntheticDataset
+    from favae_tpu_torch.train.favae_trainer import FavaeTrainer
+    cfg = dataclasses.replace(celebahq_expe5(), compute_dtype="float32")
+    lc = dataclasses.replace(celebahq_expe5_losses(), spectral_dtype="float32",
+                             disc_start_epochs=1, ffl_start_epochs=0)
+    tc = TrainConfig(batch_size=2, epochs=2)
+    root = ROOT / "output" / "chip_smoke_resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name):
+        tr = FavaeTrainer(cfg, lc, tc, str(root / name), device="cuda")
+        loader = DataLoader(SyntheticDataset(64, size=2 * steps, seed=5), 2,
+                            num_workers=2, shuffle=True, seed=0)
+        return tr, loader
+
+    t0 = time.perf_counter()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        full, loader = trainer("full")
+        full.fit(loader, None)
+        half, loader = trainer("half")
+        half.fit(loader, None, epochs=1)
+        again, loader = trainer("half")
+        again.resume()
+        again.fit(loader, None)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+    ref = {k: v.detach().float().cpu()
+           for k, v in full.state.model.state_dict().items()}
+    ours = {k: v.detach().float().cpu()
+            for k, v in again.state.model.state_dict().items()}
+    keys = sorted({k for h in full.history for k in h
+                   if k.startswith("loss") or k == "weight_d"})
+    loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(again.history, full.history[steps:])
+                   for k in keys if k in b)
+    out = {"deterministic": deterministic, "lr": full.lr,
+           "start_epoch": again.start_epoch,
+           "steps": [again.state.step, full.state.step],
+           "loss_max_rel_err": loss_rel,
+           **state_errors(ref, ours, full.lr),
+           "bits_equal": same_tree(again.state.state_dict(),
+                                   full.state.state_dict()),
+           "s": time.perf_counter() - t0}
+    log("resume-cross-check", json.dumps(out))
+    lim = TRAIN_XCHECK
+    within = (loss_rel <= lim["loss_rel"]
+              and out["state_max_rel_err"] <= lim["state_rel"]
+              and out["param_max_err_lr"] <= lim["param_max_lr"]
+              and out["param_mean_err_lr"] <= lim["param_mean_lr"])
+    if not (out["start_epoch"] == 1 and out["steps"] == [2 * steps] * 2
+            and (within or not deterministic)):
+        raise AssertionError(f"resume cross-check out of bounds {lim}")
+    return out
+
+
+def inception_cross_check(n=2):
+    """InceptionV3 features of `n` 256 px images with the seeded weights of
+    `export_and_evaluate`, on the card in f32 (TF32 off) and in bf16,
+    against the CPU in f32; errors relative to the largest feature."""
+    import torch
+    from favae_tpu_torch.data.pipeline import SyntheticDataset
+    from favae_tpu_torch.models.inception import (InceptionV3FID,
+                                                  load_inception)
+    ds = SyntheticDataset(256, size=n, seed=11)
+    x = torch.from_numpy(np.stack([ds.get(i) for i in range(n)]))
+    feats = {}
+    for name, dtype, dev in (("cpu_f32", torch.float32, "cpu"),
+                             ("card_f32", torch.float32, "cuda"),
+                             ("card_bf16", torch.bfloat16, "cuda")):
+        model = InceptionV3FID(dtype)
+        load_inception(model, str(ROOT / "output" / "pt_inception_seeded.pt"))
+        model.to(dev).eval()
+        feats[name] = model(x.to(dev)).cpu()
+    ref = feats["cpu_f32"]
+    scale = ref.abs().max().item()
+    out = {"feature_max": scale, "feature_mean": ref.mean().item()}
+    for name in ("card_f32", "card_bf16"):
+        err = (feats[name] - ref).abs()
+        out[name] = {"max_abs_err": err.max().item(),
+                     "max_rel_err_of_largest": err.max().item() / scale,
+                     "finite": bool(torch.isfinite(feats[name]).all())}
+    log("inception-cross-check", json.dumps(out))
+    lim = INCEPTION_XCHECK
+    if not (out["card_f32"]["finite"] and out["card_bf16"]["finite"]
+            and out["card_f32"]["max_rel_err_of_largest"] <= lim["f32"]
+            and out["card_bf16"]["max_rel_err_of_largest"] <= lim["bf16"]):
+        raise AssertionError(f"inception cross-check out of bounds {lim}")
     return out
 
 
@@ -1594,16 +1862,22 @@ def zero_counts():
             counts[k] = 0
 
 
-def cat_train_slice():
+def cat_train_slice(decode_gn):
     """`cli.train_cat` at cat_celebahq, B=16, one epoch of CAT_STEPS steps
-    and CAT_VAL_BATCHES val batches, on the full pipeline and with
-    --cache_latents, counts zeroed just before each run and read just
+    and CAT_VAL_BATCHES val batches on the full pipeline, then `--resume`
+    for a second epoch, then `cli.export_torch --cat` of `best` and
+    `cli.generate` on the `.pt` and on the directory, then a fresh run with
+    --cache_latents. Counts are zeroed just before each run and read just
     after; the steps' own launches are the counts' rise over the epoch's
-    steps in that run. Both runs make CAT_STEPS + CAT_VAL_BATCHES encodes
-    of B=16 (in the steps and val batches, or in the precompute): one
-    vq_nearest and as many gn_stats as gn_apply an encode, none in the
-    cached steps, no GroupNorm backward, no int8 kernel. Returns the runs
-    and the full pipeline's launches a step."""
+    steps, less its previews'. Each run makes CAT_STEPS + CAT_VAL_BATCHES
+    encodes of B=16 (in the steps and val batches, or in the precompute):
+    one vq_nearest and as many gn_stats as gn_apply an encode, none in the
+    cached steps, no GroupNorm backward, no int8 kernel. A preview (global
+    step 0 and after validation; `--img_steps` is 1000) adds one FA-VAE
+    decode's `decode_gn` GroupNorm calls, two on the cached path (the
+    cached tokens' decode stands for the images). Each checkpoint is timed,
+    read back and compared (`checking_saves`). Returns the runs and the
+    full pipeline's launches a step."""
     import torch
     from favae_tpu_torch.cli import train_cat
     from favae_tpu_torch.graphs import launch_counts
@@ -1611,75 +1885,119 @@ def cat_train_slice():
     from favae_tpu_torch.train.cat_trainer import CATTrainer
 
     def rows_1_4():
+        torch.cuda.synchronize()
         return {**vq.LAUNCHES, **gn.LAUNCHES}
 
-    in_steps = []
-    train_epoch = CATTrainer.train_epoch
+    def rise(before):
+        return {k: v - before[k] for k, v in rows_1_4().items()}
+
+    in_steps, previews = [], []
+    train_epoch, log_samples = CATTrainer.train_epoch, CATTrainer._log_samples
 
     def counted_epoch(self, *args, **kw):
-        torch.cuda.synchronize()
         before = rows_1_4()
         train_epoch(self, *args, **kw)
-        torch.cuda.synchronize()
-        in_steps.append({k: v - before[k] for k, v in rows_1_4().items()})
+        in_steps.append(rise(before))
 
-    runs = {}
+    def counted_preview(self, name, *args, **kw):
+        before = rows_1_4()
+        log_samples(self, name, *args, **kw)
+        previews.append((name, rise(before)))
+
+    run_dir = ROOT / "output" / "cat" / "chip_smoke_cat"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    runs, per_step = {}, None
     encodes = CAT_STEPS + CAT_VAL_BATCHES
-    for name, extra in (("full", []), ("cached", ["--cache_latents"])):
+    for name, extra in (("full", []), ("resume", ["--resume", "--epochs", "2"]),
+                        ("cached", ["--cache_latents"])):
+        if name == "cached":
+            runs["export_generate"] = cat_export_generate(run_dir)
+            shutil.rmtree(run_dir)
         in_steps.clear()
+        previews.clear()
+        saves = []
         zero_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         CATTrainer.train_epoch = counted_epoch
+        CATTrainer._log_samples = counted_preview
         try:
-            out = train_cat.main(CAT_TRAIN_ARGS + extra)
+            out = checking_saves(
+                lambda: train_cat.main(CAT_TRAIN_ARGS + extra), saves)
         finally:
             CATTrainer.train_epoch = train_epoch
+            CATTrainer._log_samples = log_samples
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = rows_1_4()
         others = {k: v for c in launch_counts()[2:] for k, v in c.items()}
         hist = out["history"]
         losses = [h["loss_gpt"] for h in hist]
-        res = {"steps": len(hist), "step_ms": [h["step_ms"] for h in hist],
+        res = {"start_epoch": out["start_epoch"], "steps": len(hist),
+               "epochs": sorted({h["epoch"] for h in hist}),
+               "step_ms": [h["step_ms"] for h in hist],
                **{k: out["summary"][k] for k in (
                    "steady_ms_per_step", "samples_per_s")},
                "lr": out["lr"],
                "launches": launches, "int8_launches": others,
-               "launches_in_steps": in_steps[0] if in_steps else None,
-               "precompute_s": out["precompute_s"],
+               "launches_in_epoch": in_steps[0] if in_steps else None,
+               "previews": previews[:], "precompute_s": out["precompute_s"],
                "max_memory_allocated_gib":
                    torch.cuda.max_memory_allocated() / 2 ** 30,
                "wall_s_incl_model_build": wall, "losses": losses,
-               "val": out["val"],
+               "val": out["val"], "checkpoints": saves,
                "finite": all(math.isfinite(v) for v in losses)
                and all(math.isfinite(v["loss_gpt"]) for v in out["val"])}
         log("cat-train", name, json.dumps(res))
-        if len(hist) != CAT_STEPS or not res["finite"] or len(in_steps) != 1:
-            raise AssertionError(f"cat train {name}: {len(hist)} steps in "
-                                 f"{len(in_steps)} epochs, finite "
-                                 f"{res['finite']}")
-        steps = in_steps[0]
+        epoch = 1 if name == "resume" else 0
+        if not (len(hist) == CAT_STEPS and res["finite"]
+                and len(in_steps) == 1 and res["epochs"] == [epoch]
+                and res["start_epoch"] == epoch):
+            raise AssertionError(f"cat train {name}: {len(hist)} steps of "
+                                 f"epochs {res['epochs']} in {len(in_steps)} "
+                                 f"epochs, finite {res['finite']}")
+        decodes = 2 if name == "cached" else 1
+        want_previews = [("train/from-cond", decodes)] * (name != "resume") \
+            + [("val/from-cond", decodes)]
+        got_previews = []
+        for pname, d in previews:
+            if (d["vq_nearest"] or d["gn_stats"] != d["gn_apply"]
+                    or d["gn_stats"] % decode_gn):
+                raise AssertionError(f"cat train {name}: preview {pname} "
+                                     f"launched {d}")
+            got_previews.append((pname, d["gn_stats"] // decode_gn))
+        in_epoch_previews = sum(d["gn_stats"] for pname, d in previews
+                                if pname.startswith("train/"))
+        steps = dict(in_steps[0])
+        for k in ("gn_stats", "gn_apply"):
+            steps[k] -= in_epoch_previews
         if name == "full":
             per_step = {k: v // CAT_STEPS for k, v in steps.items()}
-            expect_steps = {k: v * CAT_STEPS for k, v in per_step.items()}
-            expect = {k: v * encodes for k, v in per_step.items()}
-        else:
-            expect_steps = {k: 0 for k in steps}
-            expect = runs["full"]["launches"]
+        expect_steps = ({k: 0 for k in steps} if name == "cached"
+                        else {k: v * CAT_STEPS for k, v in per_step.items()})
+        expect = {k: v * encodes for k, v in per_step.items()}
+        for k in ("gn_stats", "gn_apply"):
+            expect[k] += sum(d[k] for _, d in previews)
         if not (per_step["vq_nearest"] == 1
                 and per_step["gn_stats"] == per_step["gn_apply"] > 0
                 and launches == expect and steps == expect_steps
+                and got_previews == want_previews
                 and not any(launches[k] for k in ("gn_bwd_sums",
                                                   "gn_bwd_dx"))
                 and not any(others.values())):
             raise AssertionError(
                 f"cat train {name}: launches {launches} ({steps} in the "
-                f"steps) and {others}, expected {expect} ({expect_steps} in "
-                f"the steps): rows 1-3 only, the same in each of {encodes} "
-                "encodes, one vq_nearest an encode")
+                f"steps), previews {got_previews} and {others}, expected "
+                f"{expect} ({expect_steps} in the steps) and previews "
+                f"{want_previews} of {decode_gn} GroupNorm calls a decode: "
+                f"rows 1-3 only, the same in each of {encodes} encodes, one "
+                "vq_nearest an encode")
+        if not (len(saves) == 1 and saves[0]["restored_bitwise_equal"]
+                and saves[0]["meta"]["epoch"] == epoch + 1):
+            raise AssertionError(f"cat train {name}: checkpoints {saves}")
         runs[name] = res
+    shutil.rmtree(run_dir)
     share = runs["full"]["steady_ms_per_step"] - runs["cached"][
         "steady_ms_per_step"]
     log("cat-train frozen towers", json.dumps({
@@ -1687,6 +2005,40 @@ def cat_train_slice():
         "full_minus_cached_ms": share,
         "share_of_full": share / runs["full"]["steady_ms_per_step"]}))
     return runs, per_step
+
+
+def cat_export_generate(run_dir):
+    """`cli.export_torch --cat` of the CAT run's `best`, then
+    `cli.generate` with `--torch_cat_ckpt` on the `.pt` and with `--ckpt`
+    on the directory: the same prompts and seed must give the same
+    tokens."""
+    import torch
+    from favae_tpu_torch.cli import export_torch, generate
+    pt = run_dir / "best.pt"
+    t0 = time.perf_counter()
+    export_torch.main(["--cat", "--orbax_ckpt", str(run_dir / "best"),
+                       "--out", str(pt), "--gpt_name", "gpt2_medium"])
+    out = {"export_s": time.perf_counter() - t0,
+           "pt_mib": pt.stat().st_size / 2 ** 20}
+    args = ["--prompt", "a smiling woman with glasses", "--n", "2",
+            "--seed", "4", "--out", str(run_dir / "samples.npz")]
+    toks = {}
+    for name, extra in (("pt", ["--torch_cat_ckpt", str(pt)]),
+                        ("dir", ["--ckpt", str(run_dir / "best")])):
+        t0 = time.perf_counter()
+        g = generate.main(args + extra)
+        torch.cuda.synchronize()
+        toks[name] = g["tokens"]
+        out[name] = {"route": g["route"], "ms_per_token": g["ms_per_token"],
+                     "wall_s": time.perf_counter() - t0,
+                     "finite": bool(np.isfinite(g["images"]).all())}
+    out["same_tokens"] = bool(np.array_equal(toks["pt"], toks["dir"]))
+    log("cat-export-generate", json.dumps(out))
+    if not (out["same_tokens"] and out["pt"]["finite"]
+            and out["dir"]["finite"]):
+        raise AssertionError("cat export: generate on the exported .pt and "
+                             "on the checkpoint directory differ")
+    return out
 
 
 def cat_train_cross_check(b=2, seed=3):
@@ -1789,8 +2141,12 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         "allow_tf32 matmul=False cudnn=False")
 
+    free = shutil.disk_usage(ROOT).free / 2 ** 30
+    log(f"disk free under the checkout: {free:.1f} GiB")
+    phase_s = {}
+
     # phase 2: build
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     libs = _build.build_all()
     import triton
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s; "
@@ -1799,7 +2155,10 @@ def main():
         log(_build.build_log(stem).strip())
     log("launch_floor_ms", json.dumps(launch_floor_ms()))
 
+    phase_s["2_build"] = time.perf_counter() - t_phase
+
     # phase 3: kernels at the shapes expe5 gives them
+    t_phase = time.perf_counter()
     cfg = celebahq_expe5()
     model = build_model(cfg, "cuda", seed=0)
     ds = SyntheticDataset(256, size=64)
@@ -1838,7 +2197,10 @@ def main():
     torch.cuda.empty_cache()
     int8_checks = int8_kernel_checks()
 
+    phase_s["3_kernels"] = time.perf_counter() - t_phase
+
     # phase 4: the recon slice through its entry point
+    t_phase = time.perf_counter()
     for counts in (vq.LAUNCHES, gn.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -1878,11 +2240,28 @@ def main():
     log("recon", json.dumps({"device_ms_per_batch": recon_ms,
                              "imgs_per_s": 16e3 / recon_ms}))
 
-    # phase 5: the train slice through its entry point
+    phase_s["4_recon"] = time.perf_counter() - t_phase
+
+    # phase 5: the train slice through its entry point: two epochs saving
+    # latest and best, a third resumed from latest, then the export of best
+    # and its evaluation with rFID and saved reconstructions
+    t_phase = time.perf_counter()
+    shutil.rmtree(ROOT / "output" / "chip_smoke", ignore_errors=True)
     train = train_slice(step_launches, gn_calls)
+    resumed = train_slice(step_launches, gn_calls, "train-resume",
+                          ["--resume", "--epochs", "3"])
+    if not (resumed["start_epoch"] == 2 and resumed["epochs"] == [2]
+            and resumed["steps_disc_on"] == train["steps_disc_on"]
+            and resumed["steps_disc_off"] == 0):
+        raise AssertionError("the resumed train run did not take exactly "
+                             "the third epoch")
     torch.cuda.empty_cache()
+    export_and_evaluate(gn_calls)
+    torch.cuda.empty_cache()
+    phase_s["5_train_save_resume_export_eval"] = time.perf_counter() - t_phase
 
     # phase 6: cross-checks against the CPU in f32 through the plain versions
+    t_phase = time.perf_counter()
     x2 = x16[:2].cpu()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     sd = model.state_dict()
@@ -1899,18 +2278,29 @@ def main():
     train_cross_check()
     del model
     torch.cuda.empty_cache()
+    resume_cross_check(deterministic=False)
+    resume_cross_check()
+    inception_cross_check()
+    torch.cuda.empty_cache()
+    phase_s["6_cross_checks"] = time.perf_counter() - t_phase
 
     # phase 7: the serve slice through its entry point, and its cross-check
-    _, serve_launches = serve_slice()
+    t_phase = time.perf_counter()
+    serve_runs, serve_launches = serve_slice()
     torch.cuda.empty_cache()
     serve_graph_routes()
     serve_cross_check()
+    phase_s["7_serve"] = time.perf_counter() - t_phase
 
-    # phase 8: the CAT train slice through its entry point, and its
-    # cross-check
-    _, cat_step_launches = cat_train_slice()
+    # phase 8: the CAT train slice through its entry point (save, resume,
+    # export, previews), and its cross-check
+    t_phase = time.perf_counter()
+    _, cat_step_launches = cat_train_slice(
+        serve_runs["exact"]["launches"]["gn_stats"])
     torch.cuda.empty_cache()
     cat_train_cross_check()
+    phase_s["8_cat_train"] = time.perf_counter() - t_phase
+    log("phase_seconds", json.dumps(phase_s))
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
     gn_total = {f: weighted(gn_rows, census, "group_norm_act", f)

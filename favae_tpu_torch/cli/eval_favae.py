@@ -1,30 +1,33 @@
-"""Reconstruction evaluation on the card: PSNR / L1 / LPIPS / codebook
-usage.
+"""Reconstruction evaluation on the card: PSNR / L1 / LPIPS / rFID /
+codebook usage.
 
 The port's counterpart of `favae_tpu/cli/eval_favae.py`: encode -> quantize
 -> decode every image of the eval set and print one JSON line with `psnr`,
-`l1`, `codebook_usage`, `images` and, with `--lpips_ckpt` (the reference's
-`vgg16_lpips.pt`), `lpips`. Weights come from a reference-format `.pt`
-(`--torch_ckpt`) or, without one, are random from seed 0.
+`l1`, `codebook_usage`, `images`, with `--lpips_ckpt` (the reference's
+`vgg16_lpips.pt`) `lpips`, and with `--inception_ckpt` (pytorch-fid's
+`pt_inception-2015-12-05` state_dict) `rfid`: the Fréchet distance between
+the InceptionV3 features of the inputs and of their reconstructions, both
+computed in the model's compute dtype. Weights come from a
+reference-format `.pt` (`--torch_ckpt`), a port checkpoint directory
+(`--orbax_ckpt`, `latest` / `best` of `train_favae`) or, without either,
+are random from seed 0. `--save_recons DIR` writes side-by-side
+[input | recon] PNGs of the first batches, 64 images at least.
 
     python -m favae_tpu_torch.cli.eval_favae --preset celebahq_expe5 \
         --torch_ckpt expe_5.pt --test_file celeba_test.pkl \
-        --lpips_ckpt vgg16_lpips.pt
-
-rFID and Orbax checkpoints are not ported yet.
+        --lpips_ckpt vgg16_lpips.pt \
+        --inception_ckpt pt_inception-2015-12-05.pt --save_recons recons
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("orbax_ckpt", "inception_ckpt")
-
 
 def build_parser():
     from favae_tpu_torch.config import PRESETS
@@ -33,6 +36,8 @@ def build_parser():
                    choices=[k for k in PRESETS if k != "cat_celebahq"])
     p.add_argument("--torch_ckpt", type=str, default=None,
                    help="reference-format .pt checkpoint")
+    p.add_argument("--orbax_ckpt", type=str, default=None,
+                   help="favae_tpu_torch checkpoint dir (latest/best)")
     p.add_argument("--test_file", type=str, default=None)
     p.add_argument("--synthetic_data", action="store_true")
     p.add_argument("--batch_size", type=int, default=16)
@@ -42,9 +47,10 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--lpips_ckpt", type=str, default=None,
                    help="the reference's vgg16_lpips.pt state_dict")
-    for flag in _NOT_PORTED:
-        p.add_argument(f"--{flag}", type=str, default=None,
-                       help="not yet ported to favae_tpu_torch")
+    p.add_argument("--inception_ckpt", type=str, default=None,
+                   help="pytorch-fid inception weights for rFID")
+    p.add_argument("--save_recons", type=str, default=None,
+                   help="directory for side-by-side [input | recon] PNGs")
     return p
 
 
@@ -58,10 +64,6 @@ def main(argv=None):
     """Run the evaluation; returns the printed metrics plus `batch_ms`, the
     wall time of each batch from host input to metrics back on the host."""
     args = build_parser().parse_args(argv)
-    for flag in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not yet ported to favae_tpu_torch")
     from favae_tpu_torch import resolve_device
     from favae_tpu_torch.config import PRESETS
     from favae_tpu_torch.convert import (load_reference_checkpoint,
@@ -73,9 +75,26 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = PRESETS[args.preset]()
+    state = None
+    if args.orbax_ckpt and not args.torch_ckpt:  # read before building
+        from favae_tpu_torch.utils.checkpoint import restore_checkpoint
+        state, _ = restore_checkpoint(args.orbax_ckpt, "cpu")
     model = build_model(cfg, device)
     if args.torch_ckpt:
         load_reference_checkpoint(model, args.torch_ckpt)
+    elif state is not None:
+        model.load_state_dict(state["model"], strict=True)
+        del state
+    inception = None
+    if args.inception_ckpt:
+        from favae_tpu_torch.models.inception import (InceptionV3FID,
+                                                      load_inception)
+        inception = InceptionV3FID(getattr(torch, cfg.compute_dtype))
+        load_inception(inception, args.inception_ckpt)
+        inception.to(device).eval()
+    if args.save_recons:
+        from PIL import Image
+        os.makedirs(args.save_recons, exist_ok=True)
     lpips = None
     if args.lpips_ckpt:
         lpips = LPIPS(getattr(torch, cfg.compute_dtype))
@@ -90,8 +109,9 @@ def main(argv=None):
                         num_workers=args.num_workers)
 
     psnrs, l1s, lpipss, batch_ms = [], [], [], []
+    feats_r, feats_f = [], []
     used = np.zeros(cfg.quantizer.codebook_size, bool)
-    seen = 0
+    seen = saved = 0
     with torch.inference_mode():
         for x in loader:
             t0 = time.perf_counter()
@@ -102,8 +122,20 @@ def main(argv=None):
                                   dim=(1, 2, 3)).cpu().numpy())
             if lpips is not None:
                 lpipss.append(lpips(xt, x_recon).float().cpu().numpy())
+            if inception is not None:
+                feats_r.append(inception(xt).cpu().numpy())
+                feats_f.append(inception(x_recon).cpu().numpy())
             used[np.unique(idx.cpu().numpy())] = True
             batch_ms.append((time.perf_counter() - t0) * 1e3)
+            if args.save_recons and saved < 64:  # whole batches, as JAX's
+                xr = x_recon.float().cpu().numpy()
+                for i in range(x.shape[0]):
+                    pair = np.clip(np.concatenate([x[i], xr[i]], axis=1)
+                                   * 0.5 + 0.5, 0, 1)
+                    Image.fromarray((pair * 255).astype(np.uint8)).save(
+                        os.path.join(args.save_recons,
+                                     f"recon_{saved:04d}.png"))
+                    saved += 1
             seen += x.shape[0]
             if args.max_images and seen >= args.max_images:
                 break
@@ -116,6 +148,10 @@ def main(argv=None):
     }
     if lpipss:
         metrics["lpips"] = float(np.mean(np.concatenate(lpipss)))
+    if feats_r:
+        from favae_tpu_torch.models.inception import fid_from_features
+        metrics["rfid"] = fid_from_features(np.concatenate(feats_r),
+                                            np.concatenate(feats_f))
     print(json.dumps(metrics))
     return {**metrics, "batch_ms": batch_ms}
 

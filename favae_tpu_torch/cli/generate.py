@@ -16,7 +16,9 @@ Three engines: the exact bf16 sampler (`GPT.sample`) by default; with
 `--quantized` the whole-step int8 kernel where
 `ops.decode_step_kernel.supports` takes the config (`gpt2_medium`,
 `gpt2_mini`), else the int8 FFN kernel with bf16 attention (`gpt2_large`).
-Orbax checkpoints (`--ckpt`) are not ported yet.
+`--ckpt` takes the GPT from a `train_cat` checkpoint directory (`latest` /
+`best`) instead of a `.pt`; an Orbax checkpoint of favae_tpu raises,
+naming the route from one.
 """
 
 from __future__ import annotations
@@ -53,8 +55,7 @@ def resolve_cfg(codebook_size: int, embed_dim: int, gpt_name: str):
 def build_parser():
     p = argparse.ArgumentParser(description="CAT text-to-image generation")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="favae_tpu CAT checkpoint dir (Orbax); not yet "
-                        "ported to favae_tpu_torch")
+                   help="favae_tpu_torch CAT checkpoint dir (latest/best)")
     p.add_argument("--torch_cat_ckpt", type=str, default=None,
                    help="reference CelebA_CAT.pt (GPT weights)")
     p.add_argument("--favae_ckpt", type=str, default=None)
@@ -91,9 +92,6 @@ def main(argv=None, cfg=None):
     the models are built) and `route`. `cfg` replaces the CATConfig that the
     flags resolve to."""
     args = build_parser().parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt (Orbax) is not yet ported to favae_tpu_torch")
     from favae_tpu_torch import resolve_device
     from favae_tpu_torch.convert import (load_reference_checkpoint,
                                          load_reference_clip_text,
@@ -102,6 +100,10 @@ def main(argv=None, cfg=None):
     from favae_tpu_torch.models.txt_cond import build_cat
 
     device = resolve_device(args.device)
+    state = None
+    if args.ckpt and not args.torch_cat_ckpt:  # read before building
+        from favae_tpu_torch.utils.checkpoint import restore_checkpoint
+        state, _ = restore_checkpoint(args.ckpt, "cpu")
     if cfg is None:
         cfg = resolve_cfg(args.codebook_size, args.embed_dim, args.gpt_name)
     tokenizer = (BPETokenizer(args.bpe_vocab) if args.bpe_vocab
@@ -113,6 +115,9 @@ def main(argv=None, cfg=None):
         load_reference_clip_text(cat.clip, args.clip_ckpt)
     if args.torch_cat_ckpt:
         load_reference_gpt(cat.gpt, args.torch_cat_ckpt)
+    elif state is not None:
+        cat.gpt.load_state_dict(state["gpt"], strict=True)
+        del state
 
     prompts = [pr for pr in args.prompt for _ in range(args.n)]
     text_ids = cat.tokenize(prompts)

@@ -14,12 +14,17 @@ Launch:
 
 Without `--favae_ckpt` / `--clip_ckpt` the frozen towers are random from
 the seed; without `--bpe_vocab` the tokenizer is the JAX CLI's few-merge
-stub. `--resume_path` warm-starts the GPT from a reference `.pt`. Not yet
-ported, and raising when set: `--resume` without a path,
-`--save_every_epoch` (no checkpoints), `--img_steps` (no sample previews)
-and `--tp` above 1. `--gpt_unroll` and `--dropout_rng` are accepted and
-ignored: the port has no layer scan and draws from one `torch.Generator`.
-`main` returns the run's per-step and validation metrics.
+stub. Each epoch writes `<output_dir>/cat/<ds>/latest` (and `best` on
+improvement; `--save_every_epoch N` for every Nth epoch and the last):
+the GPT, its AdamW moments, the step and the dropout generator.
+TensorBoard scalars and sample previews (every `--img_steps` global steps
+and after each validation) go to `<output_dir>/cat/<ds>/runs`. `--resume`
+continues from `latest`; `--resume_path` names a checkpoint directory or
+a reference-format `.pt` (GPT weights only, fresh AdamW). `--tp` above 1
+is not yet ported and raises. `--gpt_unroll` and `--dropout_rng` are
+accepted and ignored: the port has no layer scan and draws from one
+`torch.Generator`. `main` returns the run's per-step and validation
+metrics.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import json
 import os
 
 # flags that are not yet ported, with the value that leaves them off
-_NOT_PORTED = {"save_every_epoch": None, "img_steps": None, "tp": 1}
+_NOT_PORTED = {"tp": 1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,8 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the frozen FA-VAE and CLIP encodes once before "
                         "training and train the GPT from the cache (~237 KB "
                         "of host memory a sample with ViT-L/14)")
-    p.add_argument("--save_every_epoch", type=int, default=None,
-                   help="not yet ported (the port saves no checkpoint)")
+    p.add_argument("--save_every_epoch", type=int, default=1)
     p.add_argument("--favae_ckpt", type=str, default=None,
                    help="reference-format FA-VAE checkpoint (.pt); random "
                         "first stage without")
@@ -96,15 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--normalize_clip", action="store_true")
     p.add_argument("--enabled_warmup", action="store_true")
     p.add_argument("--print_steps", type=int, default=10)
-    p.add_argument("--img_steps", type=int, default=None,
-                   help="not yet ported (no sample previews)")
+    p.add_argument("--img_steps", type=int, default=1000)
     p.add_argument("--txt_tok_cond", action="store_true")
-    p.add_argument("--resume", action="store_true",
-                   help="without --resume_path: not yet ported (no "
-                        "checkpoints)")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--resume_path", type=str, default=None,
-                   help="reference-format CAT .pt (GPT weights only) to "
-                        "warm-start from; Orbax directories are not ported")
+                   help="explicit checkpoint to resume or warm-start from: "
+                        "a checkpoint directory (full state) or a "
+                        "reference-format CAT .pt (GPT weights only). "
+                        "Default: <output_dir>/cat/<ds>/latest (reference: "
+                        "train_cat.py:199-204)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor parallelism: only 1 is ported (one card)")
     p.add_argument("--train_file", type=str, default=None)
@@ -184,19 +188,15 @@ def config_from_args(args):
 
 
 def main(argv=None, cfg=None):
-    """Train; returns {"lr", "history" (one dict a step: loss_gpt, lr,
-    step_ms), "val" (one dict an epoch), "precompute_s", "profile" (or
-    None), "summary" (`run_summary`, also printed)}. `cfg` replaces the
-    CATConfig that the flags resolve to."""
+    """Train; returns {"lr", "start_epoch", "history" (one dict a step:
+    loss_gpt, lr, step_ms), "val" (one dict an epoch), "precompute_s",
+    "profile" (or None), "summary" (`run_summary`, also printed)}. `cfg`
+    replaces the CATConfig that the flags resolve to."""
     args = build_parser().parse_args(argv)
     for flag, off in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag} is not yet ported to favae_tpu_torch")
-    if args.resume and not args.resume_path:
-        raise NotImplementedError("--resume without --resume_path (resuming "
-                                  "from checkpoints) is not yet ported to "
-                                  "favae_tpu_torch")
     import torch
 
     from favae_tpu_torch import resolve_device
@@ -249,16 +249,20 @@ def main(argv=None, cfg=None):
                          enabled_warmup=args.enabled_warmup, seed=args.seed,
                          grad_accum=args.grad_accum,
                          cache_latents=args.cache_latents, cat=cat,
+                         log_dir=os.path.join(save_path, "runs"),
+                         save_every_epoch=args.save_every_epoch,
                          enable_profiler=args.profile)
-    if args.resume_path:
+    if args.resume or args.resume_path:
         trainer.resume(args.resume_path)
     print(f"device={device} lr={trainer.lr:.3e} batch={batch} "
           f"grad_accum={args.grad_accum} steps/epoch={len(train_dl)} "
           f"cache_latents={args.cache_latents}", flush=True)
-    trainer.fit(train_dl, val_dl, print_steps=args.print_steps)
+    trainer.fit(train_dl, val_dl, print_steps=args.print_steps,
+                img_steps=args.img_steps)
     summary = run_summary(trainer.history, batch, device)
     print("summary " + json.dumps(summary), flush=True)
-    return {"lr": trainer.lr, "history": trainer.history, "val": trainer.val,
+    return {"lr": trainer.lr, "start_epoch": trainer.start_epoch,
+            "history": trainer.history, "val": trainer.val,
             "precompute_s": trainer.precompute_s, "profile": trainer.profile,
             "summary": summary}
 

@@ -9,10 +9,15 @@ unless `--device cpu` is passed) and `--synthetic_steps`. Launch:
         --test_file celeba_test.pkl --lpips_ckpt vgg16_lpips.pt
 
 `--lpips_ckpt` loads the reference's `vgg16_lpips.pt` state_dict as it is.
-Flags whose path is not yet ported (checkpoint and resume, k-means init,
-ActNorm, dead-code expiry, the orthogonal regulariser, bf16 Adam moments,
-the uint8 and process loaders, image logging) raise when set. `main`
-returns the run's per-step and validation metrics.
+Each epoch writes `<output_dir>/<ds>/latest` (and `best` on improvement;
+`--save_every_epoch N` for every Nth epoch and the last), TensorBoard
+scalars and recon grids go to `<output_dir>/<ds>/runs`. `--resume`
+continues from `latest`; `--resume_path` names a checkpoint directory (the
+full state) or a reference-format `.pt` (weights only, fresh optimizers,
+epoch 0). Flags whose path is not yet ported (k-means init, ActNorm,
+dead-code expiry, the orthogonal regulariser, bf16 Adam moments, the
+uint8 and process loaders) raise when set. `main` returns the run's
+per-step and validation metrics.
 """
 
 from __future__ import annotations
@@ -23,8 +28,7 @@ import json
 import os
 
 # flags that are not yet ported, with the value that leaves them off
-_NOT_PORTED = {"resume": False, "resume_path": None, "save_every_epoch": None,
-               "img_steps": None, "loader_uint8": False,
+_NOT_PORTED = {"loader_uint8": False,
                "loader_processes": False, "kmeans_init": False,
                "use_actnorm": False, "threshold_ema_dead_code": 0.0,
                "orthogonal_reg_weight": 0.0,
@@ -40,8 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "ffhq_table1, imagenet_f16, imagenet_f4)")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--downsample_factor", type=int, default=16)
-    p.add_argument("--save_every_epoch", type=int, default=None,
-                   help="not yet ported (the port saves no checkpoint)")
+    p.add_argument("--save_every_epoch", type=int, default=1)
     p.add_argument("--perceptual_weight", type=float, default=1.0)
     p.add_argument("--disc_weight", type=float, default=0.75)
     p.add_argument("--codebook_weight", type=float, default=1.0)
@@ -59,15 +62,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loader_processes", action="store_true",
                    help="not yet ported")
     p.add_argument("--print_steps", type=int, default=10)
-    p.add_argument("--img_steps", type=int, default=None,
-                   help="not yet ported (no image logging)")
+    p.add_argument("--img_steps", type=int, default=100)
     p.add_argument("--base_lr", type=float, default=2.0e-6)
     p.add_argument("--adam_mu_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 is not yet ported")
-    p.add_argument("--resume", action="store_true", help="not yet ported")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--resume_path", type=str, default=None,
-                   help="not yet ported")
+                   help="explicit checkpoint to resume or warm-start from: "
+                        "a checkpoint directory (full state) or a "
+                        "reference-format .pt (weights only). Default: "
+                        "<output_dir>/<ds>/latest (reference: "
+                        "train_favae.py:334-341)")
     p.add_argument("--train_file", type=str, default=None)
     p.add_argument("--test_file", type=str, default=None)
     p.add_argument("--double_z", action="store_true")
@@ -196,13 +202,15 @@ def config_from_args(args):
 
     train_cfg = C.TrainConfig(
         batch_size=args.batch_size, base_lr=args.base_lr, epochs=args.epochs,
-        print_steps=args.print_steps, adam_mu_dtype=args.adam_mu_dtype)
+        save_every_epoch=args.save_every_epoch, print_steps=args.print_steps,
+        img_steps=args.img_steps, adam_mu_dtype=args.adam_mu_dtype)
     return model_cfg, loss_cfg, train_cfg
 
 
 def main(argv=None):
-    """Train; returns {"lr", "history" (one dict of scalars per step, with
-    its step_ms), "val" (one dict per epoch), "profile" (or None)}."""
+    """Train; returns {"lr", "start_epoch", "history" (one dict of scalars
+    per step, with its step_ms), "val" (one dict per epoch), "profile" (or
+    None)}."""
     args = build_parser().parse_args(argv)
     for flag, off in _NOT_PORTED.items():
         if getattr(args, flag) != off:
@@ -244,11 +252,15 @@ def main(argv=None):
                 else None)
     trainer = FavaeTrainer(model_cfg, loss_cfg, train_cfg, save_path,
                            device=args.device, lpips_state_dict=lpips_sd,
+                           log_dir=os.path.join(save_path, "runs"),
                            enable_profiler=args.profile)
+    if args.resume or args.resume_path:
+        trainer.resume(args.resume_path)
     print(f"device={trainer.device} lr={trainer.lr:.3e} batch={batch} "
           f"steps/epoch={len(train_dl)}", flush=True)
     trainer.fit(train_dl, val_dl)
-    return {"lr": trainer.lr, "history": trainer.history,
+    return {"lr": trainer.lr, "start_epoch": trainer.start_epoch,
+            "history": trainer.history,
             "val": trainer.val, "profile": trainer.profile}
 
 

@@ -106,6 +106,28 @@ class CATAdamW:
         if nu is not self.nu:
             torch._foreach_copy_(self.nu, nu)
 
+    def state_dict(self) -> Dict:
+        """The moments in their storage dtypes and the update count (what
+        optax's state holds), as lists in the parameters' order."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict) -> None:
+        """Copy a `state_dict` of an optimizer over the same GPT and
+        moment dtypes into this one."""
+        for name in ("mu", "nu"):
+            ours, theirs = getattr(self, name), sd[name]
+            if len(theirs) != len(ours) or any(
+                    a.shape != b.shape or a.dtype != b.dtype
+                    for a, b in zip(ours, theirs)):
+                raise ValueError(
+                    f"the checkpoint's {name} does not match this "
+                    f"optimizer's parameters and {name} dtype "
+                    f"({ours[0].dtype})")
+            torch._foreach_copy_(ours, list(theirs))
+        self.count = int(sd["count"])
+
 
 @dataclasses.dataclass
 class CATTrainState:

@@ -8,10 +8,16 @@ FA-VAE and CLIP towers either run inside every step (the full pipeline) or
 run once before training (`cache_latents`, `data/latent_cache.py`), after
 which a loader over the cache with the same seed replays the image
 loader's batches. Dropout and conditioning dropout draw from one
-`torch.Generator` on the card, seeded `seed + 1`. Losses stay on the
-device during an epoch and are fetched once at its end, with step times
-from CUDA events at each step's start (host clock on the CPU). Checkpoints
-and the sample previews are not yet ported: the trainer saves nothing.
+`torch.Generator` on the card, seeded `seed + 1`; its state is saved
+with the checkpoint, so a resumed run draws the masks the uninterrupted
+one would (JAX folds the step into a fixed key instead). Losses stay on
+the device during an epoch and are fetched once at its end (and on print
+steps), with step times from CUDA events at each step's start (host clock
+on the CPU). Each epoch ends with `CheckpointManager.on_epoch_end`: the
+GPT, its AdamW moments, the step and the generator; the frozen towers
+come from their own files. Sample previews on `img_steps` and after
+validation draw from a generator of their own, seeded from `seed` and the
+step, so turning them on leaves the training trajectory as it was.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ from favae_tpu_torch.train.cat_step import (CATAdamW, CATTrainState,
                                             make_cat_latent_train_step,
                                             make_cat_train_step)
 from favae_tpu_torch.train.schedule import make_step_schedule
+from favae_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                              restore_checkpoint)
+from favae_tpu_torch.utils.logging import MetricWriter, print0
 
 
 class CATTrainer:
@@ -42,6 +51,7 @@ class CATTrainer:
                  enabled_warmup: bool = True, seed: int = 0,
                  grad_accum: int = 1, cache_latents: bool = False,
                  cat: Optional[CATModel] = None,
+                 log_dir: Optional[str] = None, save_every_epoch: int = 1,
                  enable_profiler: bool = False):
         """`cat` replaces the seeded random CATModel that `build_cat` would
         make (for weights loaded by the caller); `enable_profiler` profiles
@@ -65,8 +75,12 @@ class CATTrainer:
         else:
             self.train_step = make_cat_train_step(grad_accum)
             self.eval_step = cat_eval_step
+        self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
+        self.ckpt = CheckpointManager(save_dir, save_every_epoch,
+                                      device=self.device)
+        self.writer = MetricWriter(log_dir)
         self.enable_profiler = enable_profiler
         self.profile: Optional[Dict] = None
         self.start_epoch = 0
@@ -75,19 +89,46 @@ class CATTrainer:
         self.val: List[Dict[str, float]] = []      # one entry per epoch
 
     def resume(self, path: Optional[str] = None):
-        """Warm-start the GPT from a reference-format `.pt` (`CelebA_CAT.pt`
-        or the state_dict) with a fresh optimizer (reference:
-        cat_scripts/train_cat.py:199-204). Resuming a run (no path, or an
-        Orbax directory) is not yet ported."""
-        if path is None or not os.path.isfile(path):
-            raise NotImplementedError("resuming a CAT run (checkpoints) is "
-                                      "not yet ported to favae_tpu_torch")
-        from favae_tpu_torch.convert import load_reference_gpt
-        load_reference_gpt(self.cat.gpt, path)
-        self.state = CATTrainState(cat=self.cat,
-                                   opt=CATAdamW(self.cat.gpt, self.cfg),
-                                   lr_schedule=self.lr_schedule)
-        print(f"warm-started GPT weights from {path}", flush=True)
+        """Resume or warm-start (reference: cat_scripts/train_cat.py:
+        199-204). ``path=None`` restores ``save_dir/latest`` (nothing
+        happens without one); a checkpoint directory restores the GPT, its
+        AdamW, the step and the dropout generator from there, with the
+        epoch and best score of its metadata; a reference-format `.pt`
+        (`CelebA_CAT.pt`, or the state_dict) warm-starts the GPT with a
+        fresh optimizer."""
+        if path is None:
+            sd, meta = self.ckpt.try_resume()
+            if sd is not None:
+                self.load_state_dict(sd)
+                self.start_epoch = int(meta.get("epoch", 0))
+                print0(f"resumed CAT from epoch {self.start_epoch}")
+            return
+        if os.path.isfile(path):
+            from favae_tpu_torch.convert import load_reference_gpt
+            load_reference_gpt(self.cat.gpt, path)
+            self.state = CATTrainState(cat=self.cat,
+                                       opt=CATAdamW(self.cat.gpt, self.cfg),
+                                       lr_schedule=self.lr_schedule)
+            print0(f"warm-started GPT weights from {path}")
+            return
+        sd, meta = restore_checkpoint(path, self.device)
+        self.load_state_dict(sd)
+        self.start_epoch = int(meta.get("epoch", 0))
+        self.ckpt.best_score = meta.get("best_score", float("inf"))
+        print0(f"resumed CAT from {path} at epoch {self.start_epoch}")
+
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds: the GPT, its AdamW, the step and the
+        dropout generator's state."""
+        return {"gpt": self.cat.gpt.state_dict(),
+                "opt": self.state.opt.state_dict(), "step": self.state.step,
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.cat.gpt.load_state_dict(sd["gpt"], strict=True)
+        self.state.opt.load_state_dict(sd["opt"])
+        self.state.step = int(sd["step"])
+        self.generator.set_state(sd["generator"].cpu())
 
     def _args(self, batch):
         """The step's tensors on the device: (x, text ids) on the full
@@ -113,26 +154,39 @@ class CATTrainer:
                           shuffle=loader.shuffle, seed=loader.seed,
                           drop_last=loader.drop_last)
 
-    def train_epoch(self, loader, epoch: int, print_steps: int = 10) -> None:
+    def train_epoch(self, loader, epoch: int, print_steps: int = 10,
+                    img_steps: int = 1000) -> None:
         window = (ProfileWindow(self.device, self.save_dir)
                   if self.enable_profiler and epoch == self.start_epoch
                   else None)
         loader.set_epoch(epoch)
+        steps_per_epoch = len(loader)
         clock = StepClock(self.device)
         losses: List[torch.Tensor] = []
         first = self.state.step
+        t_last, seen = time.perf_counter(), 0
         for step, batch in enumerate(loader):
             if window is not None:
                 window.at_step(step)
             clock.mark()
-            self.state, m = self.train_step(self.state, *self._args(batch),
+            args = self._args(batch)
+            self.state, m = self.train_step(self.state, *args,
                                             self.generator)
             losses.append(m["loss_gpt"])
+            seen += args[0].shape[0]
+            gstep = epoch * steps_per_epoch + step
             if step % print_steps == 0:
-                print(f"epoch {epoch} step {step} loss_gpt="
-                      f"{float(m['loss_gpt']):.4f} lr="
-                      f"{self.lr_schedule(self.state.step - 1):.3e}",
-                      flush=True)
+                now = time.perf_counter()
+                scalars = {"loss_gpt": float(m["loss_gpt"]),
+                           "lr": self.lr_schedule(self.state.step - 1),
+                           "samples_per_sec": seen / max(now - t_last, 1e-9)}
+                t_last, seen = now, 0
+                self.writer.scalars("train", scalars, gstep)
+                print0(f"epoch {epoch} step {step} loss_gpt="
+                       f"{scalars['loss_gpt']:.4f} lr={scalars['lr']:.3e} "
+                       f"samples/s={scalars['samples_per_sec']:.2f}")
+            if img_steps and gstep % img_steps == 0:
+                self._log_samples("train/from-cond", batch, args, gstep)
         clock.mark()
         if window is not None:
             window.close(len(losses))
@@ -144,32 +198,63 @@ class CATTrainer:
                                  "lr": self.lr_schedule(first + i),
                                  "step_ms": ms})
 
+    def _log_samples(self, name: str, batch, args, step: int, n: int = 4):
+        """A preview: the first `n` captions of a batch sampled to images
+        beside the batch's images (on the cached path the FA-VAE decode of
+        its cached tokens, which stand for the images there), from a
+        generator seeded from `seed` and `step` (JAX folds the step into
+        its key), never the training one."""
+        if self.cache_latents:
+            g = self.cfg.gpt.image_encoded_dim
+            gt = self.cat.decode_to_img(args[0][:n].reshape(-1, g, g))
+            text_ids = torch.from_numpy(batch[3][:n]).long().to(self.device)
+            captions = batch[4]
+        else:
+            gt, captions = batch[0][:n], batch[1]
+            text_ids = args[1][:n]
+        gen = torch.Generator(device=self.device).manual_seed(
+            ((self.seed + 1) << 32) + step)
+        imgs, _ = self.cat.sample_images(text_ids, generator=gen,
+                                         top_k=self.cfg.top_k,
+                                         top_p=self.cfg.top_p)
+        self.writer.caption_grid(name, gt, imgs, list(captions[:n]), step)
+
     @torch.no_grad()
     def validate(self, loader, epoch: int) -> float:
-        """Mean CE over the val set, summed on the device, fetched once."""
+        """Mean CE over the val set, summed on the device, fetched once;
+        then a preview of the last batch."""
         total = torch.zeros((), device=self.device)
         n = 0
+        last = None
         for batch in loader:
             args = self._args(batch)
             m = self.eval_step(self.state, *args)
             total += m["loss_gpt"] * args[0].shape[0]
             n += args[0].shape[0]
+            last = (batch, args)
         val = total.item() / max(n, 1)
         self.val.append({"epoch": epoch, "loss_gpt": val, "samples": n})
-        print(f"=== validate CAT epoch {epoch}: loss_gpt={val:.4f}",
-              flush=True)
+        self.writer.scalars("val", {"loss_gpt": val}, epoch)
+        if last is not None:
+            self._log_samples("val/from-cond", *last, epoch)
+        print0(f"=== validate CAT epoch {epoch}: loss_gpt={val:.4f}")
         return val
 
     def fit(self, train_loader, val_loader, epochs: Optional[int] = None,
-            print_steps: int = 10) -> None:
+            print_steps: int = 10, img_steps: int = 1000) -> None:
+        """Train from `start_epoch` to `epochs`, validating (where there is
+        a val loader) and checkpointing after each epoch; a preview every
+        `img_steps` global steps (none with 0) and after each
+        validation."""
         epochs = epochs or self.cfg.epochs
-        print("checkpoints are not yet ported to favae_tpu_torch: this run "
-              "saves no weights", flush=True)
         if self.cache_latents:
             train_loader = self.latent_loader(train_loader)
             if val_loader is not None:
                 val_loader = self.latent_loader(val_loader)
         for epoch in range(self.start_epoch, epochs):
-            self.train_epoch(train_loader, epoch, print_steps)
-            if val_loader is not None:
-                self.validate(val_loader, epoch)
+            self.train_epoch(train_loader, epoch, print_steps, img_steps)
+            score = (self.validate(val_loader, epoch)
+                     if val_loader is not None else float("inf"))
+            self.ckpt.on_epoch_end(epoch, score, self.state_dict(),
+                                   is_last=epoch == epochs - 1)
+        self.writer.close()

@@ -8,7 +8,11 @@ own at `sigma_lr` (non-pairwise sigmas live in the encoder and decoder and
 take the main lr, as in the reference), and a second Adam over the
 discriminator. `torch.optim.Adam` with eps 1e-8 is the same update as
 `optax.adam`. The JAX package's state is one functional pytree; here the
-parameters, buffers and optimizer moments are updated in place.
+parameters, buffers and optimizer moments are updated in place, and
+`state_dict` / `load_state_dict` carry what Orbax saves there: the model's
+parameters and buffers (codebook EMA, discriminator BatchNorm statistics),
+both optimizers and the step. The frozen LPIPS is not saved; it comes
+from `--lpips_ckpt`.
 """
 
 from __future__ import annotations
@@ -84,3 +88,28 @@ class FavaeTrainState:
         lpips.to(dev)
         opt_g, opt_d = make_optimizers(model, train_cfg, lr)
         return cls(model=model, lpips=lpips, opt_g=opt_g, opt_d=opt_d)
+
+    def state_dict(self) -> Dict:
+        return {"model": self.model.state_dict(),
+                "opt_g": self.opt_g.state_dict(),
+                "opt_d": self.opt_d.state_dict(), "step": self.step}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore a `state_dict` into this state, whose optimizers must be
+        built from the same configs: `torch.optim.Adam` matches its state to
+        the parameters by their order in the groups, and the pairwise-sigma
+        group exists only for pairwise DSL."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        for opt, key in ((self.opt_g, "opt_g"), (self.opt_d, "opt_d")):
+            opt.load_state_dict(_steps_on_host(sd[key]))
+        self.step = int(sd["step"])
+
+
+def _steps_on_host(opt_sd: Dict) -> Dict:
+    """An Adam state_dict with each parameter's `step` counter on the CPU,
+    where Adam keeps it (`load_state_dict` leaves it where the checkpoint
+    was loaded to, and a counter on the card would cost a sync a
+    parameter each step)."""
+    return {**opt_sd, "state": {
+        i: {k: (v.cpu() if k == "step" else v) for k, v in st.items()}
+        for i, st in opt_sd["state"].items()}}

@@ -1,16 +1,21 @@
-"""FA-VAE trainer: epoch loop with the (disc_on, ffl_on) gates, validation
-and an optional profiler window (port of favae_tpu/train/favae_trainer.py).
+"""FA-VAE trainer: epoch loop with the (disc_on, ffl_on) gates, validation,
+checkpoints, logging and an optional profiler window (port of
+favae_tpu/train/favae_trainer.py).
 
 Metrics stay on the device during an epoch and are fetched once at its end,
-plus on logging steps. Step times come from CUDA events recorded at each
-step's start on the card (host clock on the CPU), so timing adds no sync.
-Checkpointing and resume, and the first-batch data-dependent inits
-(k-means codebook, ActNorm), are not yet ported: the trainer saves nothing
-and raises for those options.
+plus on logging steps (`print_steps`), which also write the train scalars;
+a recon grid on `img_steps` is fetched only when a writer records it. Step
+times come from CUDA events recorded at each step's start on the card (host
+clock on the CPU), so timing adds no sync. Each epoch ends with
+`CheckpointManager.on_epoch_end` (latest, and best on improvement); `resume`
+restores a run. The first-batch data-dependent inits (k-means codebook,
+ActNorm) are not yet ported and raise.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -20,14 +25,20 @@ from favae_tpu_torch import resolve_device
 from favae_tpu_torch.config import LossConfig, TrainConfig, VQGANConfig
 from favae_tpu_torch.models.quantizer import check_ported
 from favae_tpu_torch.profiling import ProfileWindow, StepClock
-from favae_tpu_torch.train.favae_state import FavaeTrainState
+from favae_tpu_torch.train.favae_state import (FavaeTrainState,
+                                               make_optimizers)
 from favae_tpu_torch.train.favae_step import make_eval_step, make_train_step
+from favae_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                              restore_checkpoint)
+from favae_tpu_torch.utils.logging import (MetricWriter, device_memory_mib,
+                                           print0)
 
 
 class FavaeTrainer:
     def __init__(self, model_cfg: VQGANConfig, loss_cfg: LossConfig,
                  train_cfg: TrainConfig, save_dir: str, device=None,
                  lpips_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 log_dir: Optional[str] = None,
                  enable_profiler: bool = False):
         check_ported(model_cfg.quantizer)
         dc = model_cfg.discriminator
@@ -49,14 +60,46 @@ class FavaeTrainer:
                                                disc_on=d, ffl_on=f)
                        for d in (False, True) for f in (False, True)}
         self.eval_step = make_eval_step(loss_cfg)
+        self.ckpt = CheckpointManager(save_dir, train_cfg.save_every_epoch,
+                                      device=self.device)
+        self.writer = MetricWriter(log_dir)
         self.start_epoch = 0
         self.history: List[Dict[str, float]] = []  # one entry per step
         self.val: List[Dict[str, float]] = []      # one entry per epoch
         self.profile: Optional[Dict] = None
 
     def resume(self, path: Optional[str] = None):
-        raise NotImplementedError(
-            "checkpoint and resume are not yet ported to favae_tpu_torch")
+        """Resume or warm-start (reference: train_favae.py:334-341).
+
+        * ``path=None``: restore ``save_dir/latest`` (with the crash-window
+          fallbacks): model, both Adams and the step, epoch and best score
+          from its metadata; nothing happens without one.
+        * ``path`` a checkpoint directory: the same full restore from there.
+        * ``path`` a reference-format ``.pt``: the model's weights, buffers
+          included, with fresh optimizers and epoch 0.
+        """
+        if path is None:
+            sd, meta = self.ckpt.try_resume()
+            if sd is not None:
+                self.state.load_state_dict(sd)
+                self.start_epoch = int(meta.get("epoch", 0))
+                print0(f"resumed from epoch {self.start_epoch}, "
+                       f"best {self.ckpt.best_score:.4f}")
+            return
+        if os.path.isfile(path):
+            from favae_tpu_torch.convert import load_reference_checkpoint
+            load_reference_checkpoint(self.state.model, path)
+            self.state.opt_g, self.state.opt_d = make_optimizers(
+                self.state.model, self.train_cfg, self.lr)
+            self.state.step = 0
+            print0(f"warm-started model weights from torch checkpoint {path}")
+            return
+        sd, meta = restore_checkpoint(path, self.device)
+        self.state.load_state_dict(sd)
+        self.start_epoch = int(meta.get("epoch", 0))
+        self.ckpt.best_score = meta.get("best_score", float("inf"))
+        print0(f"resumed from {path} at epoch {self.start_epoch}, "
+               f"best {self.ckpt.best_score:.4f}")
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
@@ -71,19 +114,34 @@ class FavaeTrainer:
                   if self.enable_profiler and epoch == self.start_epoch
                   else None)
         loader.set_epoch(epoch)
+        steps_per_epoch = len(loader)
         clock = StepClock(self.device)
         pending: List[Dict[str, torch.Tensor]] = []
+        t_last, imgs_since = time.perf_counter(), 0
         for step, x in enumerate(loader):
             if window is not None:
                 window.at_step(step)
             clock.mark()
             self.state, m = step_fn(self.state, self._to_device(x))
             pending.append({k: v for k, v in m.items() if v.dim() == 0})
+            imgs_since += x.shape[0]
+            gstep = epoch * steps_per_epoch + step
             if step % cfg.print_steps == 0:
-                print(f"epoch {epoch} step {step} " + " ".join(
-                    f"{k}={float(v):.4f}" for k, v in sorted(m.items())
-                    if v.dim() == 0 and (k.startswith("loss")
-                                         or k == "weight_d")), flush=True)
+                scalars = dict(zip(pending[-1], torch.stack(
+                    list(pending[-1].values())).tolist()))
+                now = time.perf_counter()
+                scalars["imgs_per_sec"] = imgs_since / max(now - t_last, 1e-9)
+                scalars["mem_mib"] = device_memory_mib(self.device)
+                t_last, imgs_since = now, 0
+                self._log_sigmas(scalars)
+                self.writer.scalars("train", scalars, gstep)
+                print0(f"epoch {epoch} step {step} " + " ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(scalars.items())
+                    if k.startswith("loss") or k in ("weight_d",
+                                                     "imgs_per_sec")))
+            if step % cfg.img_steps == 0:
+                self.writer.recon_grid("train/img-recon", x[:4],
+                                       m["x_recon"][:4], gstep)
         clock.mark()
         if window is not None:
             window.close(len(pending))
@@ -115,23 +173,32 @@ class FavaeTrainer:
         keys = ("loss_l1", "loss_perceptual", "loss_recon")
         totals = torch.zeros(len(keys), device=self.device)
         n = 0
+        last = None
         for x in loader:
             out = self.eval_step(self.state, self._to_device(x))
             totals += torch.stack([out[k] for k in keys]) * x.shape[0]
             n += x.shape[0]
+            last = (x, out["x_recon"])
         row = dict(zip(keys, (totals / max(n, 1)).tolist()))
+        self.writer.scalars("val", row, epoch)
+        if last is not None:
+            self.writer.recon_grid("val/img-recon", last[0][:4],
+                                   last[1][:4], epoch)
         row.update(epoch=epoch, images=n)
         self.val.append(row)
-        print(f"=== validate epoch {epoch}: " + " ".join(
-            f"{k}={row[k]:.4f}" for k in keys), flush=True)
+        print0(f"=== validate epoch {epoch}: " + " ".join(
+            f"{k}={row[k]:.4f}" for k in keys))
         return row["loss_recon"]
 
     # ------------------------------------------------------------------
     def fit(self, train_loader, val_loader, epochs: Optional[int] = None):
+        """Train from `start_epoch` to `epochs`, validating (where there is
+        a val loader) and checkpointing after each epoch."""
         epochs = epochs or self.train_cfg.epochs
-        print("checkpoints are not yet ported to favae_tpu_torch: this run "
-              "saves no weights", flush=True)
         for epoch in range(self.start_epoch, epochs):
             self.train_epoch(train_loader, epoch)
-            if val_loader is not None:
-                self.validate(val_loader, epoch)
+            score = (self.validate(val_loader, epoch)
+                     if val_loader is not None else float("inf"))
+            self.ckpt.on_epoch_end(epoch, score, self.state.state_dict(),
+                                   is_last=epoch == epochs - 1)
+        self.writer.close()

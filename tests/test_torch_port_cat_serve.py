@@ -162,9 +162,15 @@ def test_generate_cli_on_cpu(tmp_path):
         assert np.isfinite(res[k]) and res[k] > 0, k
 
 
-def test_generate_cli_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        generate.main(["--prompt", "x", "--device", "cpu", "--ckpt", "dir"])
+def test_generate_cli_names_what_is_not_ported(tmp_path):
+    """`--ckpt` takes a train_cat checkpoint directory; a favae_tpu Orbax
+    directory (no `state.pt`) raises before any model is built, naming
+    the route through the JAX package's exporter."""
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(FileNotFoundError,
+                       match="favae_tpu.cli.export_torch.*--torch_cat_ckpt"):
+        generate.main(["--prompt", "x", "--device", "cpu", "--ckpt",
+                       str(tmp_path / "orbax")])
 
 
 @pytest.mark.parametrize("name,n_layer,n_embed,n_head,route", [

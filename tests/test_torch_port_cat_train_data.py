@@ -28,6 +28,7 @@ from favae_tpu_torch.cli import preprocess, train_cat
 from favae_tpu_torch.data import manifest
 from favae_tpu_torch.data import pipeline as tpipe
 from tests.cat_train_common import tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PIL = pytest.importorskip("PIL.Image")
 
@@ -144,8 +145,7 @@ def test_train_cat_cli_needs_a_card_unless_told_cpu(tmp_path):
                        cfg=tiny_cfg(tcfg))
 
 
-@pytest.mark.parametrize("flags", [["--resume"], ["--save_every_epoch", "1"],
-                                   ["--img_steps", "10"], ["--tp", "2"]])
+@pytest.mark.parametrize("flags", [["--tp", "2"]])
 def test_train_cat_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _run(tmp_path, *flags)
@@ -216,7 +216,8 @@ def test_profile_groups_tell_the_optimizer_from_group_norm(name, group):
 
 def test_trainer_resume_warm_starts_from_a_reference_pt(tmp_path):
     """`--resume_path` with a reference-format CAT `.pt` loads the GPT
-    (fresh AdamW); resuming a run, from no path or a directory, raises."""
+    (fresh AdamW); resuming a run, from `latest` (no path) or from a
+    checkpoint directory, restores the GPT, its AdamW and the step."""
     import torch
 
     from favae_tpu_torch.train.cat_trainer import CATTrainer
@@ -231,6 +232,12 @@ def test_trainer_resume_warm_starts_from_a_reference_pt(tmp_path):
         assert torch.equal(v, sd[k]), k
     assert tr.state.opt.count == 0
     assert tr.state.opt.params[0] is next(tr.cat.gpt.parameters())
-    for path in (None, str(tmp_path)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tr.resume(path)
+    tr.state.opt.count, tr.state.step = 5, 5
+    tr.ckpt.on_epoch_end(0, 1.0, tr.state_dict())
+    for path in (None, str(tmp_path / "best")):
+        other = CATTrainer(cfg, str(tmp_path), 2, 4, device="cpu", seed=1)
+        other.resume(path)
+        assert other.start_epoch == 1 and other.state.step == 5
+        assert other.state.opt.count == 5
+        for k, v in other.cat.gpt.state_dict().items():
+            assert torch.equal(v, sd[k]), k

@@ -24,6 +24,7 @@ from favae_tpu_torch.cli import eval_favae
 from favae_tpu_torch.convert import from_jax_params, load_reference_checkpoint
 from favae_tpu_torch.data.pipeline import DataLoader, SyntheticDataset
 from favae_tpu_torch.models.vqgan import VQGANFCM
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY_CODEC = dict(base_channels=64, ch_mult=(1, 2), num_res_blocks=1,
                   attn_resolutions=(8,), resolution=16, z_channels=32)
@@ -152,7 +153,12 @@ def test_eval_cli_on_cpu():
     assert 0.0 < m["codebook_usage"] <= 4 / 1024
 
 
-@pytest.mark.parametrize("flag", ["--orbax_ckpt", "--inception_ckpt"])
-def test_eval_cli_names_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eval_favae.main(["--device", "cpu", flag, "x"])
+@pytest.mark.parametrize("flag", ["--orbax_ckpt"])
+def test_eval_cli_names_what_is_not_ported(flag, tmp_path):
+    """A favae_tpu Orbax directory (no `state.pt`) does not load; the
+    message names the route through the JAX package's exporter."""
+    (tmp_path / "best").mkdir()
+    with pytest.raises(FileNotFoundError,
+                       match="favae_tpu.cli.export_torch.*--torch_ckpt"):
+        eval_favae.main(["--device", "cpu", "--resolution", "16",
+                         flag, str(tmp_path / "best")])
