@@ -63,13 +63,30 @@ Phases (any failure exits non-zero):
    same tokens), and one epoch with `--cache_latents` (the encode once,
    before the steps), counts zeroed just before each run and held to the
    encodes and previews each run makes; then one step at gpt2_medium
-   width and 2 layers, B=2, f32, from one state on the card and on the CPU.
+   width and 2 layers, B=2, f32, from one state on the card and on the CPU;
+9. presets and options: `cli.train_favae` at ffhq_table1, imagenet_f16
+   and imagenet_f4 as published (batch 16, or the largest of 8 and 4 that
+   fits, 256 px, bf16, two epochs of 4 synthetic steps, the
+   discriminator from the second, 4 val batches each), option run A at
+   imagenet_f4's widths by flags (k-means init, dead-code expiry, the
+   orthogonal regulariser on 1024 codes, bf16 Adam moments, uint8 PNGs
+   of a manifest written here, decoded by worker processes; then a third
+   epoch resumed) and B at imagenet_f16's (a 2-layer ActNorm PatchGAN, D
+   from step 0, each ActNorm's init held to its input's statistics), each
+   run zeroed before, read after and held to a census of its own config
+   (steps with and without D, validation, the first-batch inits), every
+   checkpoint read back and compared; k-means through `vq_nearest`
+   against its plain version (cosine at A's first batch, euclidean at
+   4096 x 1024 x 256); one train step of each config on the card against
+   the CPU (A's with its quantizer draws given); `vq_nearest` at each
+   preset's shape and the GroupNorm kernels at every new shape.
 It prints each phase's seconds, a `{"kernels": [...]}` line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. TF32 is
 off for matmuls and cuDNN.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -342,9 +359,10 @@ def check_vq_streams(n=4096, k=1024, d=256, seed=5, rounds=20):
     return row
 
 
-def gn_census(model, x):
-    """Distinct GroupNorm calls of one reconstruction: {key: calls}, with
-    key = (N, C, H, W, act, in dtype, out dtype)."""
+def gn_census(model, x, fn=None, groups=None):
+    """Distinct GroupNorm calls of one reconstruction (or of `fn(x)`):
+    {key: calls}, with key = (N, C, H, W, act, in dtype, out dtype); each
+    key's group count goes to `groups` where given."""
     import torch
     from favae_tpu_torch.models.blocks import GroupNormAct
     seen, not_cl = {}, [0]
@@ -355,11 +373,14 @@ def gn_census(model, x):
                str(mod.dtype).split(".")[1])
         seen[key] = seen.get(key, 0) + 1
         not_cl[0] += not t.is_contiguous(memory_format=torch.channels_last)
+        if groups is not None:
+            groups[key] = mod.num_groups
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
                if isinstance(m, GroupNormAct)]
     try:
-        model.reconstruct(x)
+        with torch.inference_mode():
+            (fn or model.reconstruct)(x)
         torch.cuda.synchronize()
     finally:
         for h in handles:
@@ -515,12 +536,13 @@ def kernel_rows(vq_main, gn_rows, census, bwd_rows, bwd_census, launches,
     return rows
 
 
-def train_census(state, model_cfg, loss_cfg, train_cfg, x):
+def train_census(state, model_cfg, loss_cfg, train_cfg, x, groups=None):
     """One train step with the discriminator and one without, at the train
-    slice's shapes: the distinct GroupNorm backward calls, keyed (N, C, H,
-    W, act, x dtype, dy dtype) with their calls a step, how many incoming
-    gradients were not channels_last (copied by the backward), and each
-    kernel's launches a step."""
+    slice's shapes (or those of the configs given): the distinct GroupNorm
+    backward calls, keyed (N, C, H, W, act, x dtype, dy dtype) with their
+    calls a step (each key's group count into `groups` where given), how
+    many incoming gradients were not channels_last (copied by the
+    backward), and each kernel's launches a step."""
     import torch
     from favae_tpu_torch.models.blocks import GroupNormAct
     from favae_tpu_torch.ops import gn, vq
@@ -537,6 +559,8 @@ def train_census(state, model_cfg, loss_cfg, train_cfg, x):
         def on_grad(g):
             seen[key] = seen.get(key, 0) + 1
         out.register_hook(on_grad)
+        if groups is not None:
+            groups[key] = mod.num_groups
 
     handles = [m.register_forward_hook(hook) for m in state.model.modules()
                if isinstance(m, GroupNormAct)]
@@ -563,7 +587,9 @@ def train_census(state, model_cfg, loss_cfg, train_cfg, x):
 
 
 def backward_kernels(fn):
-    """Device kernels that one call of `fn` runs, from torch.profiler."""
+    """Device kernels that one call of `fn` runs, from torch.profiler; None
+    when the profiler records no device event at all (`fn` launches at
+    least one kernel: the count is unknown, not 0)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -571,8 +597,9 @@ def backward_kernels(fn):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events())
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    return n or None
 
 
 def replays_differing(fn, ref, replays=100):
@@ -698,7 +725,8 @@ def check_gn_bwd(key, seed, groups=32):
         return pp, qq
 
     kernels = backward_kernels(backward)
-    parent_kernels = backward_kernels(parent_ops) + 2
+    parent_kernels = backward_kernels(parent_ops)
+    parent_kernels = None if parent_kernels is None else parent_kernels + 2
 
     ws, bs = scale.to(in_dt), bias.to(in_dt)
     xl = x.detach().clone().requires_grad_()
@@ -756,7 +784,7 @@ def check_gn_bwd(key, seed, groups=32):
     log("gn_bwd", json.dumps(row))
     if (sums_rel > 1e-5 or ds_rel > 1e-5 or coef_rel > 1e-5 or not dx_ok
             or not fn_dx_ok or fn_rel > 1e-5 or not bits_twice
-            or differ or kernels > 3):
+            or differ or (kernels is not None and kernels > 3)):
         raise AssertionError(
             f"group norm backward disagrees at {row['shape']}: sums rel "
             f"{sums_rel}, dscale/dbias rel {ds_rel}, c2/c3 rel {coef_rel}, "
@@ -1218,74 +1246,12 @@ def checking_saves(fn, events):
 
 
 def train_slice(per_step_launches, recon_gn_calls, name="train", extra=()):
-    """`cli.train_favae` at expe5 B=16 with the counts zeroed just before;
-    the launches must equal what the census implies. Each epoch's
-    checkpoint is timed, read back and compared (`checking_saves`)."""
-    import torch
-    from favae_tpu_torch.cli import train_favae
-    from favae_tpu_torch.ops import gn, vq
-    for counts in (vq.LAUNCHES, gn.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    torch.cuda.reset_peak_memory_stats()
-    saves = []
-    t0 = time.perf_counter()
-    out = checking_saves(lambda: train_favae.main(TRAIN_ARGS + list(extra)),
-                         saves)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**vq.LAUNCHES, **gn.LAUNCHES}
-    hist, val = out["history"], out["val"]
-    steps_on = sum(h["disc_on"] for h in hist)
-    steps_off = len(hist) - steps_on
-    val_batches = sum(v["images"] for v in val) // 16
-    expect = {k: steps_on * per_step_launches[True][k]
-              + steps_off * per_step_launches[False][k]
-              for k in launches}
-    expect["vq_nearest"] += val_batches
-    expect["gn_stats"] += val_batches * recon_gn_calls
-    expect["gn_apply"] += val_batches * recon_gn_calls
-
-    def steady(disc_on):  # all but the first two steps of the epoch
-        ms = [h["step_ms"] for h in hist if h["disc_on"] == disc_on][2:]
-        return statistics.median(ms) if ms else None
-
-    losses = sorted({k for h in hist for k in h
-                     if k.startswith("loss") or k == "weight_d"})
-    finite = all(math.isfinite(h[k]) for h in hist for k in losses if k in h)
-    res = {
-        "start_epoch": out["start_epoch"],
-        "epochs": sorted({h["epoch"] for h in hist}),
-        "steps_disc_off": steps_off, "steps_disc_on": steps_on,
-        "val_batches": val_batches, "launches": launches,
-        "expected_launches": expect,
-        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "wall_s_incl_model_build": wall,
-        "first_step": {k: hist[0][k] for k in losses if k in hist[0]},
-        "last_step": {k: hist[-1][k] for k in losses if k in hist[-1]},
-        "weight_d_range": [min(h["weight_d"] for h in hist if h["disc_on"]),
-                           max(h["weight_d"] for h in hist if h["disc_on"])],
-        "val": val, "all_losses_finite": finite, "checkpoints": saves}
-    for key, disc_on in (("disc_off", False), ("disc_on", True)):
-        ms = steady(disc_on)
-        res[f"step_ms_{key}"] = ms
-        if ms:
-            res[f"imgs_per_s_{key}"] = 16e3 / ms
-    log(name, json.dumps(res))
-    if not finite:
-        raise AssertionError("non-finite training losses")
-    if launches != expect or not all(launches.values()):
-        raise AssertionError(f"{name} slice launched {launches}, the census "
-                             f"implies {expect}")
-    epochs = res["epochs"]
-    if not (len(saves) == len(epochs)
-            and all(e["restored_bitwise_equal"] and e["best_exists"]
-                    for e in saves)
-            and [e["meta"]["epoch"] for e in saves] == [
-                e + 1 for e in epochs]):
-        raise AssertionError(f"{name}: checkpoints {saves} after epochs "
-                             f"{epochs}")
-    return res
+    """`cli.train_favae` at expe5 B=16 (`config_run`), held to phase 3's
+    census: `per_step_launches` a step with and without D, one
+    reconstruction's `recon_gn_calls` a val batch."""
+    census = {"per_step": per_step_launches,
+              "recon_gn_calls": recon_gn_calls, "init": {}}
+    return config_run(name, TRAIN_ARGS + list(extra), 16, census)
 
 
 def export_and_evaluate(recon_gn_calls):
@@ -1353,10 +1319,12 @@ def export_and_evaluate(recon_gn_calls):
     return out
 
 
-def train_cross_check():
-    """One disc-on, ffl-on step at expe5 width, 64 px, B=2, from one state:
-    on the card in f32 (TF32 off) and in bf16, and on the CPU in f32 through
-    the plain versions."""
+def train_cross_check(name="expe5", configs=None, draws=None):
+    """One disc-on, ffl-on step at expe5 width (or of the (model, loss,
+    train) `configs`), 64 px, B=2, from one state: on the card in f32 (TF32
+    off) and in bf16, and on the CPU in f32 through the plain versions;
+    `draws`, the quantizer draws of the step's two stages, made once and
+    given to all three."""
     import torch
     from favae_tpu_torch.config import (TrainConfig, celebahq_expe5,
                                         celebahq_expe5_losses)
@@ -1364,18 +1332,21 @@ def train_cross_check():
     from favae_tpu_torch.models.vqgan import build_model
     from favae_tpu_torch.train.favae_state import FavaeTrainState
     from favae_tpu_torch.train.favae_step import make_train_step
+    if configs is None:
+        configs = (celebahq_expe5(), celebahq_expe5_losses(),
+                   TrainConfig(batch_size=2))
+    model_cfg, loss_cfg, tc = configs
+    tc = dataclasses.replace(tc, batch_size=2)
     ds = SyntheticDataset(64, size=2, seed=3)
     x = torch.from_numpy(np.stack([ds.get(i) for i in range(2)]))
-    tc = TrainConfig(batch_size=2)
     lr = tc.base_lr * tc.batch_size
     runs = {}
     sd = lpips_sd = None
-    for name, dtype, device in (("cpu_f32", "float32", "cpu"),
-                                ("card_f32", "float32", "cuda"),
-                                ("card_bf16", "bfloat16", "cuda")):
-        cfg = dataclasses.replace(celebahq_expe5(), compute_dtype=dtype)
-        lc = dataclasses.replace(celebahq_expe5_losses(),
-                                 spectral_dtype=dtype)
+    for run, dtype, device in (("cpu_f32", "float32", "cpu"),
+                               ("card_f32", "float32", "cuda"),
+                               ("card_bf16", "bfloat16", "cuda")):
+        cfg = dataclasses.replace(model_cfg, compute_dtype=dtype)
+        lc = dataclasses.replace(loss_cfg, spectral_dtype=dtype)
         model = build_model(cfg, device, gaussian_kernel=lc.gaussian_kernel,
                             dsl_init_sigma=lc.dsl_init_sigma)
         if sd is None:
@@ -1388,22 +1359,24 @@ def train_cross_check():
                         state.lpips.state_dict().items()}
         step = make_train_step(cfg, lc, tc, disc_on=True, ffl_on=True)
         t0 = time.perf_counter()
-        state, m = step(state, x.to(device))
-        runs[name] = {
+        state, m = step(state, x.to(device), None if draws is None else [
+            draws_on(d, device) for d in draws])
+        runs[run] = {
             "metrics": {k: float(v) for k, v in m.items() if v.dim() == 0},
             "state": {k: v.detach().float().cpu()
                       for k, v in state.model.state_dict().items()},
             "s": time.perf_counter() - t0}
+        del state, model, step
     ref = runs["cpu_f32"]
-    out = {"lr": lr, "cpu_step_s": ref["s"]}
-    for name in ("card_f32", "card_bf16"):
-        run = runs[name]
+    out = {"config": name, "lr": lr, "cpu_step_s": ref["s"]}
+    for run_name in ("card_f32", "card_bf16"):
+        run = runs[run_name]
         rel = {k: abs(v - ref["metrics"][k]) / max(abs(ref["metrics"][k]),
                                                    1e-12)
                for k, v in run["metrics"].items()}
-        out[name] = {"loss_rel_err": rel,
-                     "finite": all(math.isfinite(v)
-                                   for v in run["metrics"].values())}
+        out[run_name] = {"loss_rel_err": rel,
+                         "finite": all(math.isfinite(v)
+                                       for v in run["metrics"].values())}
     out["card_f32"].update(state_errors(ref["state"],
                                         runs["card_f32"]["state"], lr))
     out["metrics"] = {n: runs[n]["metrics"] for n in runs}
@@ -1421,7 +1394,7 @@ def train_cross_check():
             and f32["param_max_err_lr"] <= lim["param_max_lr"]
             and f32["param_mean_err_lr"] <= lim["param_mean_lr"]
             and not bf16_out):
-        raise AssertionError(f"train cross-check out of bounds "
+        raise AssertionError(f"train cross-check {name} out of bounds "
                              f"{TRAIN_XCHECK}, bf16 band {BF16_BAND}")
     return out
 
@@ -2113,6 +2086,509 @@ def cat_train_cross_check(b=2, seed=3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the presets never trained on the card, and the train options
+# ---------------------------------------------------------------------------
+
+PRESET_RUNS = ("ffhq_table1", "imagenet_f16", "imagenet_f4")
+RUN_STEPS = 4              # synthetic train batches an epoch (val: 4)
+# imagenet_f4's and imagenet_f16's published loss weights, by flags
+PRESET_LOSS_FLAGS = ["--perceptual_weight", "1.0", "--disc_weight", "0.75",
+                     "--codebook_weight", "1.0", "--ffl_weight", "1.0",
+                     "--DSL_weight_features", "0.01", "--gaussian_kernel",
+                     "3", "--dsl_init_sigma", "3.0"]
+# option run A at imagenet_f4's widths, run B at imagenet_f16's
+OPTION_A_FLAGS = ["--downsample_factor", "4", "--embed_dim", "3",
+                  "--codebook_dim", "256", "--codebook_size", "8192",
+                  "--num_groups", "3", "--use_cosine_sim",
+                  "--use_same_conv_gauss", *PRESET_LOSS_FLAGS,
+                  "--kmeans_init", "--threshold_ema_dead_code", "1.0",
+                  "--orthogonal_reg_weight", "10",
+                  "--orthogonal_reg_max_codes", "1024",
+                  "--adam_mu_dtype", "bfloat16", "--loader_uint8",
+                  "--loader_processes"]
+OPTION_B_FLAGS = ["--downsample_factor", "16", "--embed_dim", "256",
+                  "--codebook_size", "16384", "--num_groups", "32",
+                  "--use_cosine_sim", "--use_same_conv_gauss",
+                  *PRESET_LOSS_FLAGS, "--use_patch_discriminator",
+                  "--disc_n_layers", "2", "--use_actnorm"]
+ACTNORM_REL = 1e-4         # ActNorm's init against the plain statistics
+KMEANS_MEAN_ERR = 1e-5     # k-means means on the card against the plain
+
+
+def zero_favae_counts():
+    from favae_tpu_torch.ops import gn, vq
+    for counts in (vq.LAUNCHES, gn.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def favae_counts():
+    from favae_tpu_torch.ops import gn, vq
+    return {**vq.LAUNCHES, **gn.LAUNCHES}
+
+
+def run_args(name, flags, batch, epochs, disc_start):
+    return ["--ds", f"chip_smoke_{name}", "--output_dir",
+            str(ROOT / "output"), *flags, "--batch_size", str(batch),
+            "--epochs", str(epochs), "--disc_start_epochs", str(disc_start),
+            "--synthetic_steps", str(RUN_STEPS), "--print_steps",
+            str(RUN_STEPS), "--num_workers", "4"]
+
+
+def run_census(args, batch):
+    """What a run of `cli.train_favae` with `args` launches, from its own
+    configs at its batch: each kernel's launches a step with and without
+    the discriminator (`train_census`), a validation batch's (one
+    reconstruction: 1 vq_nearest, one gn_stats and gn_apply a GroupNorm
+    call) and the first-batch inits' (k-means: kmeans_iters + 1
+    assignments and one encoder forward; ActNorm: one reconstruction);
+    the GroupNorm shapes of the forward and the backward with their
+    group counts."""
+    import torch
+    from favae_tpu_torch.cli import train_favae
+    from favae_tpu_torch.data.pipeline import SyntheticDataset
+    from favae_tpu_torch.train.favae_state import FavaeTrainState
+    cfg, lc, tc = train_favae.config_from_args(
+        train_favae.build_parser().parse_args(args))
+    res = cfg.codec.resolution
+    ds = SyntheticDataset(res, size=batch)
+    x = torch.from_numpy(np.stack([ds.get(i) for i in range(batch)])).cuda()
+    state = FavaeTrainState.create(cfg, lc, tc, tc.base_lr * batch, "cuda")
+    groups = {}
+    fwd, _ = gn_census(state.model, x, groups=groups)
+    recon = sum(fwd.values())
+    init = {"vq_nearest": 0, "gn_stats": 0, "gn_apply": 0}
+    if cfg.quantizer.kmeans_init:
+        enc, _ = gn_census(state.model, x, state.model.codebook_inputs)
+        init["vq_nearest"] += cfg.quantizer.kmeans_iters + 1
+        init["gn_stats"] += sum(enc.values())
+        init["gn_apply"] += sum(enc.values())
+    if cfg.discriminator.use_actnorm and cfg.discriminator.kind == "patch":
+        init["vq_nearest"] += 1
+        init["gn_stats"] += recon
+        init["gn_apply"] += recon
+    bwd, per_step = train_census(state, cfg, lc, tc, x, groups)
+    del state, x
+    torch.cuda.empty_cache()
+    return {"configs": (cfg, lc, tc), "per_step": per_step,
+            "recon_gn_calls": recon, "init": init, "fwd": fwd, "bwd": bwd,
+            "groups": groups}
+
+
+def expected_launches(census, hist, val_images, batch, with_init):
+    per = census["per_step"]
+    on = sum(h["disc_on"] for h in hist)
+    keys = list(per[True])
+    keys.remove("dy_copies")
+    expect = {k: on * per[True][k] + (len(hist) - on) * per[False][k]
+              for k in keys}
+    val_batches = val_images // batch
+    expect["vq_nearest"] += val_batches
+    expect["gn_stats"] += val_batches * census["recon_gn_calls"]
+    expect["gn_apply"] += val_batches * census["recon_gn_calls"]
+    if with_init:
+        for k, v in census["init"].items():
+            expect[k] += v
+    return expect
+
+
+def config_run(name, args, batch, census, with_init=True, hook=None):
+    """`cli.train_favae` with `args`, the counts zeroed just before and
+    read just after and held to the census; each epoch's checkpoint read
+    back and compared with the state it saved (`checking_saves`), `best`
+    written. One line, `name`: steady step ms without and with D,
+    images/s, peak memory, first and last losses, the codebook's batch
+    usage and replacements, launches."""
+    import torch
+    from favae_tpu_torch.cli import train_favae
+    zero_favae_counts()
+    torch.cuda.reset_peak_memory_stats()
+    saves = []
+    t0 = time.perf_counter()
+    out = checking_saves(lambda: train_favae.main(args), saves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = favae_counts()
+    hist, val = out["history"], out["val"]
+    val_images = sum(v["images"] for v in val)
+    expect = expected_launches(census, hist, val_images, batch, with_init)
+    losses = sorted({k for h in hist for k in h
+                     if k.startswith("loss") or k == "weight_d"})
+    finite = all(math.isfinite(h[k]) for h in hist for k in losses if k in h)
+
+    def steady(disc_on):  # all but the first two steps of the stage
+        ms = [h["step_ms"] for h in hist if h["disc_on"] == disc_on][2:]
+        return statistics.median(ms) if ms else None
+
+    res = {"batch": batch, "start_epoch": out["start_epoch"],
+           "epochs": sorted({h["epoch"] for h in hist}),
+           "steps_disc_off": sum(not h["disc_on"] for h in hist),
+           "steps_disc_on": sum(h["disc_on"] for h in hist),
+           "val_images": val_images, "val_batches": val_images // batch,
+           "step_ms_disc_off": steady(False), "step_ms_disc_on": steady(True),
+           "step_ms": [h["step_ms"] for h in hist],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "wall_s_incl_model_build": wall,
+           "first_step": {k: hist[0][k] for k in losses if k in hist[0]},
+           "last_step": {k: hist[-1][k] for k in losses if k in hist[-1]},
+           "weight_d_range": [min((h["weight_d"] for h in hist
+                                   if h["disc_on"]), default=None),
+                              max((h["weight_d"] for h in hist
+                                   if h["disc_on"]), default=None)],
+           "cb_batch_usage_pct": [h["cb_batch_usage_pct"] for h in hist],
+           "cb_replaced": [h.get("cb_replaced") for h in hist],
+           "val": val, "all_losses_finite": finite,
+           "launches": launches, "expected_launches": expect,
+           "checkpoints": saves}
+    for key in ("disc_off", "disc_on"):
+        ms = res[f"step_ms_{key}"]
+        res[f"imgs_per_s_{key}"] = batch * 1e3 / ms if ms else None
+    if hook is not None:
+        res.update(hook())
+    log(name, json.dumps(res))
+    if not finite:
+        raise AssertionError(f"{name}: non-finite training losses")
+    if launches != expect or not all(launches.values()):
+        raise AssertionError(f"{name} launched {launches}, its census "
+                             f"implies {expect}")
+    if not (len(saves) == len(res["epochs"])
+            and all(e["restored_bitwise_equal"] and e["best_exists"]
+                    for e in saves)
+            and [e["meta"]["epoch"] for e in saves] == [
+                e + 1 for e in res["epochs"]]):
+        raise AssertionError(f"{name}: checkpoints {saves} after epochs "
+                             f"{res['epochs']}")
+    return res
+
+
+def fitting_batch(name, make_args, with_census):
+    """The largest of 16, 8 and 4 images a batch whose census and run fit
+    on the card: (batch, census, run line)."""
+    import torch
+    for batch in (16, 8, 4):
+        try:
+            census = run_census(make_args(batch), batch)
+            return batch, census, with_census(batch, census)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"run {name}: batch {batch} does not fit ({e}); "
+                "trying a smaller one")
+            gc.collect()
+            torch.cuda.empty_cache()
+    raise AssertionError(f"run {name}: no batch of 16, 8 or 4 fits")
+
+
+def write_png_manifest(root, n, res, seed, name):
+    """`n` seeded RGB PNGs of `res` px under `root` and a pkl manifest."""
+    import pickle
+    from PIL import Image
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i in range(n):
+        p = root / f"{name}_{i}.png"
+        Image.fromarray(rng.randint(0, 256, (res, res, 3), np.uint8)).save(p)
+        paths.append(str(p))
+    with open(root / f"{name}.pkl", "wb") as f:
+        pickle.dump(paths, f)
+    return str(root / f"{name}.pkl")
+
+
+def actnorm_recorder():
+    """Wrap `ActNorm.data_init` to keep, for each call, the largest error
+    of the loc and scale it set against the plain per-channel statistics
+    of its input recomputed in f64 on the card, relative to the largest
+    entry (`ACTNORM_REL`)."""
+    import torch
+    from favae_tpu_torch.models.discriminator import ActNorm
+    orig, rows = ActNorm.data_init, []
+
+    def data_init(self, x):
+        out = orig(self, x)
+        xd = x.double()
+        mean = xd.mean(dim=(0, 2, 3))
+        scale = 1.0 / (xd.std(dim=(0, 2, 3)) + 1e-6)
+        loc_err = (self.loc.detach().double().flatten() + mean).abs().max()
+        scale_err = (self.scale.detach().double().flatten() - scale
+                     ).abs().max()
+        rows.append({"channels": x.shape[1], "input": list(x.shape),
+                     "loc_rel_err": (loc_err / mean.abs().max()).item(),
+                     "scale_rel_err": (scale_err / scale.abs().max()).item()})
+        return out
+
+    ActNorm.data_init = data_init
+
+    def restore():
+        ActNorm.data_init = orig
+        return rows
+    return restore
+
+
+def kmeans_card_check(n, k, d, cosine, seed, iters=10):
+    """k-means through row 1 (`ops.vq`) against its plain version (the JAX
+    package's formulas) on the card, from one first permutation: the whole
+    runs (bins exactly, means within KMEANS_MEAN_ERR), and each assignment
+    step of the kernel's run held on the same means, its codes differing
+    from the plain argmax only at near-ties (the chosen code's f64 score
+    within VQ_NEAR_TIE of the best)."""
+    import torch
+    from favae_tpu_torch.models.quantizer import (code_stats, kmeans,
+                                                  kmeans_assign, l2norm)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn(k // 4, d, device="cuda", generator=g)
+    x = centres[torch.randint(0, k // 4, (n,), device="cuda", generator=g)]
+    x = x + 0.5 * torch.randn(n, d, device="cuda", generator=g)
+    if cosine:
+        x = l2norm(x)
+    first = torch.randperm(n, device="cuda", generator=g)
+    zero_favae_counts()
+    t0 = time.perf_counter()
+    means, bins = kmeans(x, k, iters, cosine, first)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = favae_counts()["vq_nearest"]
+    t0 = time.perf_counter()
+    pmeans, pbins = kmeans(x, k, iters, cosine, first, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    # the kernel's trajectory, each step's codes against the plain argmax
+    flips, gap = 0, 0.0
+    m = x[first[:k]]
+    for it in range(iters + 1):
+        kb = kmeans_assign(x, m, cosine)
+        pb = kmeans_assign(x, m, cosine, plain=True)
+        diff = (kb != pb).nonzero().flatten()
+        flips += diff.numel()
+        if diff.numel():
+            xs, md = x[diff].double(), m.double()
+            if cosine:
+                sc = xs @ md.T
+            else:
+                sc = -torch.cdist(xs, md)
+            gap = max(gap, (sc.max(dim=1).values
+                            - sc.gather(1, kb[diff, None])[:, 0]).max().item())
+        if it == iters:
+            break
+        b, sums = code_stats(x, kb, k)
+        nm = sums / b.clamp(min=1.0)[:, None]
+        if cosine:
+            nm = l2norm(nm)
+        m = torch.where((b == 0)[:, None], m, nm)
+    row = {"shape": f"N={n} K={k} D={d} {'cosine' if cosine else 'euclidean'}"
+                    f" iters={iters}",
+           "vq_nearest_launches": launches,
+           "bins_equal": bool(torch.equal(bins, pbins)),
+           "means_max_abs_err": (means - pmeans).abs().max().item(),
+           "populated_bins": int((bins > 0).sum()),
+           "step_flips_vs_plain": flips, "flip_max_score_gap": gap,
+           "kernel_s": kernel_s, "plain_s": plain_s}
+    log("kmeans", json.dumps(row))
+    whole = row["bins_equal"] and row["means_max_abs_err"] <= KMEANS_MEAN_ERR
+    if launches != iters + 1 or gap > VQ_NEAR_TIE or not (whole or flips):
+        raise AssertionError(f"k-means on the card disagrees: {row}")
+    if not whole:
+        log(f"kmeans: the whole runs part at {flips} near-tie flips "
+            f"(max score gap {gap})")
+    del x, means, pmeans
+    torch.cuda.empty_cache()
+    return row
+
+
+def draws_on(draws, device):
+    """QuantizerDraws with every tensor moved to `device`."""
+    return dataclasses.replace(draws, **{
+        f.name: (None if getattr(draws, f.name) is None
+                 else getattr(draws, f.name).to(device))
+        for f in dataclasses.fields(draws)})
+
+
+def presets_and_options(skip_fwd=(), skip_bwd=()):
+    """Phase 9: the three presets as published and option runs A and B,
+    each through `cli.train_favae` held to its own census; A resumed and
+    its checkpoints compared bit for bit; B's ActNorm init against the
+    plain statistics; k-means on the card; one train step of each config
+    on the card against the CPU; row 1 at each preset's shape and rows 2-4
+    at every GroupNorm shape of these runs that is not among `skip_fwd` /
+    `skip_bwd` (phase 3's, with 32 groups). Returns (runs, vq rows,
+    k-means rows, (gn rows, their census), (backward rows, their
+    census)), each census {shape: calls a recon batch or a train step of
+    the first run that has it}."""
+    import torch
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.cli import train_favae
+    from favae_tpu_torch.models.quantizer import draw_quantizer
+    runs, shapes_fwd, shapes_bwd, groups = {}, {}, {}, {}
+
+    def collect(name, census):
+        for key, calls in census["fwd"].items():
+            shapes_fwd.setdefault(key, (calls, name))
+        for key, calls in census["bwd"].items():
+            shapes_bwd.setdefault(key, (calls, name))
+        groups.update(census["groups"])
+
+    # the presets as published: both stages (D from epoch 1) and the sigma
+    # group, validation after each epoch
+    for preset in PRESET_RUNS:
+        def make(batch, preset=preset):
+            return run_args(preset, ["--preset", preset, "--synthetic_data"],
+                            batch, 2, 1)
+        shutil.rmtree(ROOT / "output" / f"chip_smoke_{preset}",
+                      ignore_errors=True)
+        batch, census, res = fitting_batch(
+            preset, make, lambda b, c, make=make, preset=preset: config_run(
+                f"run {preset}", make(b), b, c))
+        collect(preset, census)
+        runs[preset] = res
+        shutil.rmtree(ROOT / "output" / f"chip_smoke_{preset}",
+                      ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # A: the codebook options at imagenet_f4's widths on a PNG manifest,
+    # uint8 batches from worker processes; saved, then resumed one epoch
+    data = ROOT / "output" / "chip_smoke_A_data"
+    train_pkl = write_png_manifest(data, 16 * RUN_STEPS, 256, 21, "train")
+    val_pkl = write_png_manifest(data, 16, 256, 22, "val")
+    shutil.rmtree(ROOT / "output" / "chip_smoke_A", ignore_errors=True)
+
+    def make_a(batch, extra=()):
+        return run_args("A", OPTION_A_FLAGS + [
+            "--train_file", train_pkl, "--test_file", val_pkl], batch, 2,
+            1) + list(extra)
+    batch_a, census_a, runs["A"] = fitting_batch(
+        "A", make_a, lambda b, c: config_run("run A", make_a(b), b, c))
+    collect("A", census_a)
+    resumed = config_run("run A-resume",
+                         make_a(batch_a, ["--resume", "--epochs", "3"]),
+                         batch_a, census_a, with_init=False)
+    if not (resumed["start_epoch"] == 2 and resumed["epochs"] == [2]):
+        raise AssertionError("run A: the resumed run did not take exactly "
+                             "the third epoch")
+    runs["A-resume"] = resumed
+    torch.cuda.empty_cache()
+
+    # B: ActNorm in a 2-layer PatchGAN at imagenet_f16's widths, D from
+    # step 0; each ActNorm's init held to its input's statistics
+    shutil.rmtree(ROOT / "output" / "chip_smoke_B", ignore_errors=True)
+
+    def make_b(batch):
+        return run_args("B", OPTION_B_FLAGS + ["--synthetic_data"], batch,
+                        1, 0)
+
+    def run_b(batch, census):
+        restore = actnorm_recorder()
+        try:
+            return config_run("run B", make_b(batch), batch, census,
+                              hook=lambda: {"actnorm": restore()})
+        finally:
+            restore()
+    batch_b, census_b, runs["B"] = fitting_batch("B", make_b, run_b)
+    collect("B", census_b)
+    act = runs["B"]["actnorm"]
+    if not (len(act) == 2 and all(
+            r["loc_rel_err"] <= ACTNORM_REL and r["scale_rel_err"]
+            <= ACTNORM_REL for r in act)):
+        raise AssertionError(f"run B: ActNorm init {act}, bound "
+                             f"{ACTNORM_REL}")
+    torch.cuda.empty_cache()
+
+    # k-means on the card at A's first batch, and euclidean where the
+    # plain version's (N, K, D) difference fits
+    kms = [kmeans_card_check(batch_a * 64 * 64, 8192, 256, True, 31),
+           kmeans_card_check(4096, 1024, 256, False, 32)]
+
+    # one train step of each config on the card against the CPU
+    for preset in PRESET_RUNS:
+        losses = {"ffhq_table1": C.ffhq_table1_losses,
+                  "imagenet_f16": C.imagenet_f16_losses,
+                  "imagenet_f4": C.imagenet_f4_losses}[preset]()
+        train_cross_check(preset, (C.PRESETS[preset](), losses,
+                                   C.TrainConfig()))
+    for name, census in (("A", census_a), ("B", census_b)):
+        cfg, lc, tc = census["configs"]
+        draws = None
+        if name == "A":  # 2 images at 64 px: 2 x 16 x 16 tokens
+            gen = torch.Generator().manual_seed(41)
+            draws = [draw_quantizer(cfg.quantizer, 512, gen)
+                     for _ in range(2)]
+        train_cross_check(name, (cfg, lc, tc), draws)
+    torch.cuda.empty_cache()
+
+    # row 1 at each preset's shape, rows 2-4 at the new GroupNorm shapes
+    vq_rows = [check_vq(4096, 2048, 256, "cosine", 61),
+               check_vq(4096, 16384, 256, "cosine", 62),
+               check_vq(65536, 8192, 256, "cosine", 63)]
+    fwd_keys = [k for k in shapes_fwd
+                if not (k in skip_fwd and groups[k] == 32)]
+    bwd_keys = [k for k in shapes_bwd
+                if not (k in skip_bwd and groups[k] == 32)]
+    gn_rows = [check_gn(k, 300 + i, groups[k]) for i, k in
+               enumerate(fwd_keys)]
+    bwd_rows = [check_gn_bwd(k, 400 + i, groups[k]) for i, k in
+                enumerate(bwd_keys)]
+    return (runs, vq_rows, kms, (gn_rows, {k: shapes_fwd[k][0]
+                                           for k in fwd_keys}),
+            (bwd_rows, {k: shapes_bwd[k][0] for k in bwd_keys}))
+
+
+def phase9_kernel_rows(vq_rows, gn_part, bwd_part, launches):
+    """The `kernels` line's entries of phase 9: row 1 at each preset's
+    shape, and rows 2-4 summed over phase 9's new GroupNorm shapes, each
+    weighted by its calls in the first run that has it (a recon batch for
+    the forward, a train step for the backward); `launches` are phase 9's
+    runs' together."""
+    rows = []
+    for r in vq_rows:
+        rows.append({
+            "name": "vq_nearest", "route": "cuda",
+            "source": "favae_tpu_torch/csrc/vq_nearest.cu",
+            "replaces": "favae_tpu/ops/vq_pallas.py:65",
+            "launches": launches["vq_nearest"], "phase": 9,
+            **{f: r[f] for f in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_f32_fma_ms", "library_ms",
+                "library_device_ms")}})
+    gn_rows, census = gn_part
+    for name, part, replaces in (
+            ("gn_stats", "stats", "favae_tpu/ops/gn_pallas.py:137"),
+            ("gn_apply", "apply", "favae_tpu/ops/gn_pallas.py:178")):
+        if not gn_rows:
+            continue
+        rows.append({
+            "name": name, "route": "triton",
+            "source": "favae_tpu_torch/ops/gn.py", "replaces": replaces,
+            "launches": launches[name], "phase": 9,
+            "shape": f"{sum(census.values())} calls over {len(census)} new "
+                     "shapes of phase 9's runs",
+            "max_abs_err": max(r[part]["max_abs_err"] for r in gn_rows),
+            **{f: weighted(gn_rows, census, part, f)
+               for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes",
+            "library_ms": weighted(gn_rows, census, "group_norm_act",
+                                   "library_ms")})
+    bwd_rows, bcensus = bwd_part
+    if bwd_rows:
+        lib = weighted(bwd_rows, bcensus, "backward", "library_ms")
+        for name, part, err, route, source, replaces in (
+                ("gn_bwd_sums", "sums", "max_rel_err", "cuda",
+                 "favae_tpu_torch/csrc/gn_bwd_sums.cu",
+                 "favae_tpu/ops/gn_pallas.py:89"),
+                ("gn_bwd_dx", "dx", "max_abs_err", "triton",
+                 "favae_tpu_torch/ops/gn.py",
+                 "favae_tpu/ops/gn_pallas.py:109")):
+            rows.append({
+                "name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "phase": 9,
+                "shape": f"{sum(bcensus.values())} calls over "
+                         f"{len(bcensus)} new shapes of phase 9's runs",
+                "max_abs_err": max(r[part][err] for r in bwd_rows),
+                **{f: weighted(bwd_rows, bcensus, part, f)
+                   for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                "bound_by": "bytes", "library_ms": lib})
+    return rows
+
+
 def main():
     smi = nvidia_smi()
     log(smi)
@@ -2300,6 +2776,15 @@ def main():
     torch.cuda.empty_cache()
     cat_train_cross_check()
     phase_s["8_cat_train"] = time.perf_counter() - t_phase
+
+    # phase 9: the presets never trained on the card and the train options
+    t_phase = time.perf_counter()
+    runs9, vq9, _, gn9, bwd9 = presets_and_options(census, bwd_census)
+    launches9 = {k: sum(r["launches"][k] for r in runs9.values())
+                 for k in train["launches"]}
+    phase_s["9_presets_and_options"] = time.perf_counter() - t_phase
+    log("phase 9 seconds", json.dumps(
+        {"s": phase_s["9_presets_and_options"], "launches": launches9}))
     log("phase_seconds", json.dumps(phase_s))
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
@@ -2314,7 +2799,8 @@ def main():
     log(json.dumps({"kernels": kernel_rows(
         vq_rows[0], gn_rows, census, bwd_rows, bwd_census,
         train["launches"], recon_launches, cat_step_launches)
-        + int8_kernel_rows(int8_checks, serve_launches),
+        + int8_kernel_rows(int8_checks, serve_launches)
+        + phase9_kernel_rows(vq9, gn9, bwd9, launches9),
         "group_norm_act_per_batch": gn_total,
         "group_norm_act_backward_per_train_step": bwd_total}))
     log(smi)

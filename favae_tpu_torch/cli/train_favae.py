@@ -14,10 +14,10 @@ Each epoch writes `<output_dir>/<ds>/latest` (and `best` on improvement;
 scalars and recon grids go to `<output_dir>/<ds>/runs`. `--resume`
 continues from `latest`; `--resume_path` names a checkpoint directory (the
 full state) or a reference-format `.pt` (weights only, fresh optimizers,
-epoch 0). Flags whose path is not yet ported (k-means init, ActNorm,
-dead-code expiry, the orthogonal regulariser, bf16 Adam moments, the
-uint8 and process loaders) raise when set. `main` returns the run's
-per-step and validation metrics.
+epoch 0). `--loader_uint8` ships uint8 batches that the step normalises
+on the card; `--loader_processes` decodes in worker processes. With
+`--preset`, the model and loss flags are ignored, as in the JAX CLI.
+`main` returns the run's per-step and validation metrics.
 """
 
 from __future__ import annotations
@@ -26,15 +26,6 @@ import argparse
 import dataclasses
 import json
 import os
-
-# flags that are not yet ported, with the value that leaves them off
-_NOT_PORTED = {"loader_uint8": False,
-               "loader_processes": False, "kmeans_init": False,
-               "use_actnorm": False, "threshold_ema_dead_code": 0.0,
-               "orthogonal_reg_weight": 0.0,
-               "orthogonal_reg_active_codes_only": False,
-               "orthogonal_reg_max_codes": None, "adam_mu_dtype": "float32"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train FA-VAE (PyTorch/CUDA)")
@@ -58,15 +49,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=800)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--loader_uint8", action="store_true",
-                   help="not yet ported")
+                   help="ship uint8 batches, normalised on the device")
     p.add_argument("--loader_processes", action="store_true",
-                   help="not yet ported")
+                   help="decode images in worker processes, not threads")
     p.add_argument("--print_steps", type=int, default=10)
     p.add_argument("--img_steps", type=int, default=100)
     p.add_argument("--base_lr", type=float, default=2.0e-6)
     p.add_argument("--adam_mu_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 is not yet ported")
+                   help="storage dtype of both Adams' first moments")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--resume_path", type=str, default=None,
                    help="explicit checkpoint to resume or warm-start from: "
@@ -87,12 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_gauss_resblock", action="store_true")
     p.add_argument("--use_gauss_attn", action="store_true")
     p.add_argument("--use_ffl_with_fcm", action="store_true")
-    p.add_argument("--orthogonal_reg_active_codes_only", action="store_true",
-                   help="not yet ported")
-    p.add_argument("--orthogonal_reg_weight", type=float, default=0.0,
-                   help="not yet ported")
-    p.add_argument("--orthogonal_reg_max_codes", type=int, default=None,
-                   help="not yet ported")
+    p.add_argument("--orthogonal_reg_active_codes_only", action="store_true")
+    p.add_argument("--orthogonal_reg_weight", type=float, default=0.0)
+    p.add_argument("--orthogonal_reg_max_codes", type=int, default=None)
     p.add_argument("--ffl_weight", type=float, default=0.0)
     p.add_argument("--DSL_weight_features", type=float, default=0.0)
     p.add_argument("--SL_weight", type=float, default=0.0)
@@ -101,13 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dsl_init_sigma", type=float, default=3.0)
     p.add_argument("--use_patch_discriminator", action="store_true")
     p.add_argument("--use_actnorm", action="store_true",
-                   help="not yet ported (ActNorm's data-dependent init)")
+                   help="ActNorm in the PatchGAN, data-initialised from "
+                        "the first batch")
     p.add_argument("--disc_n_layers", type=int, default=3)
     p.add_argument("--kmeans_init", action="store_true",
-                   help="not yet ported")
+                   help="k-means codebook init on the first batch")
     p.add_argument("--kmeans_iters", type=int, default=10)
     p.add_argument("--threshold_ema_dead_code", type=float, default=0.0,
-                   help="not yet ported")
+                   help="replace codes whose EMA count falls below this")
     p.add_argument("--num_groups", type=int, default=32)
     p.add_argument("--lpips_ckpt", type=str, default=None,
                    help="the reference's vgg16_lpips.pt state_dict")
@@ -212,10 +201,6 @@ def main(argv=None):
     per step, with its step_ms), "val" (one dict per epoch), "profile" (or
     None)}."""
     args = build_parser().parse_args(argv)
-    for flag, off in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} is not yet ported to favae_tpu_torch")
     import torch
 
     from favae_tpu_torch.convert import read_lpips_checkpoint
@@ -240,12 +225,15 @@ def main(argv=None):
         train_ds = SyntheticDataset(res, size=args.synthetic_steps * batch)
         val_ds = SyntheticDataset(res, size=4 * batch, seed=7)
     else:
-        train_ds = PklImageDataset(args.train_file, res)
-        val_ds = PklImageDataset(args.test_file, res) if args.test_file \
-            else None
+        dtype = "uint8" if args.loader_uint8 else "float32"
+        train_ds = PklImageDataset(args.train_file, res, output_dtype=dtype)
+        val_ds = (PklImageDataset(args.test_file, res, output_dtype=dtype)
+                  if args.test_file else None)
     train_dl = DataLoader(train_ds, batch, num_workers=args.num_workers,
-                          shuffle=True, seed=train_cfg.seed)
-    val_dl = (DataLoader(val_ds, batch, num_workers=args.num_workers)
+                          shuffle=True, seed=train_cfg.seed,
+                          use_processes=args.loader_processes)
+    val_dl = (DataLoader(val_ds, batch, num_workers=args.num_workers,
+                         use_processes=args.loader_processes)
               if val_ds else None)
 
     lpips_sd = (read_lpips_checkpoint(args.lpips_ckpt) if args.lpips_ckpt
@@ -258,7 +246,12 @@ def main(argv=None):
         trainer.resume(args.resume_path)
     print(f"device={trainer.device} lr={trainer.lr:.3e} batch={batch} "
           f"steps/epoch={len(train_dl)}", flush=True)
-    trainer.fit(train_dl, val_dl)
+    try:
+        trainer.fit(train_dl, val_dl)
+    finally:
+        for dl in (train_dl, val_dl):
+            if dl is not None:
+                dl.close()
     return {"lr": trainer.lr, "start_epoch": trainer.start_epoch,
             "history": trainer.history,
             "val": trainer.val, "profile": trainer.profile}

@@ -6,14 +6,19 @@ port imports nothing of the JAX package. Semantics are the reference's
 [path, caption] manifests): Resize((r, r)) -> scale to [0, 1] -> normalise
 with mean/std 0.5, giving HWC float32 pixels in [-1, 1]; unreadable images
 fall through to the next index. Batches are NHWC numpy arrays (with a list
-of captions beside them for caption datasets), decoded in a thread pool,
-optionally shuffled per epoch.
+of captions beside them for caption datasets), decoded in a thread pool
+or, with `use_processes`, in a persistent pool of worker processes,
+optionally shuffled per epoch. `output_dtype="uint8"` ships the resized
+pixels as they are, and the train and eval steps normalise them on the
+device (`train/favae_step.py::to_unit_range`) with the reference's op
+sequence.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import pickle
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Iterator, List
 
 import numpy as np
@@ -50,17 +55,29 @@ def _transform(img, resolution: int) -> np.ndarray:
     return (x - MEAN) / STD
 
 
+def _transform_uint8(img, resolution: int) -> np.ndarray:
+    """Resize only; the step normalises on the device."""
+    img = img.resize((resolution, resolution), Image.BILINEAR)
+    return np.asarray(img, np.uint8)
+
+
 class PklImageDataset:
     """Images of a pkl manifest (paths, or [path, caption] entries); with
-    `with_captions`, (image, caption) items of a [path, caption] one."""
+    `with_captions`, (image, caption) items of a [path, caption] one.
+    `output_dtype` "float32" gives pixels in [-1, 1], "uint8" the resized
+    pixels (favae_tpu/data/pipeline.py:96-113)."""
 
     def __init__(self, manifest_path: str, resolution: int,
-                 with_captions: bool = False):
+                 with_captions: bool = False, output_dtype: str = "float32"):
         if not _HAVE_PIL:
             raise RuntimeError("PIL is required for image loading")
+        if output_dtype not in ("float32", "uint8"):
+            raise ValueError(f"output_dtype {output_dtype!r} is not "
+                             "float32 or uint8")
         self.entries = load_manifest(manifest_path)
         self.resolution = resolution
         self.with_captions = with_captions
+        self.output_dtype = output_dtype
 
     def __len__(self):
         return len(self.entries)
@@ -71,7 +88,8 @@ class PklImageDataset:
             e = self.entries[probe % len(self.entries)]
             img = _load_image(e[0] if isinstance(e, (list, tuple)) else e)
             if img is not None:
-                x = _transform(img, self.resolution)
+                x = (_transform_uint8 if self.output_dtype == "uint8"
+                     else _transform)(img, self.resolution)
                 return (x, e[1]) if self.with_captions else x
         raise RuntimeError("no readable image in manifest")
 
@@ -99,6 +117,19 @@ class SyntheticDataset:
         return x
 
 
+# process-pool workers, module-level so that they pickle by reference
+_WORKER_DS = None
+
+
+def _proc_init(ds) -> None:
+    global _WORKER_DS
+    _WORKER_DS = ds
+
+
+def _proc_fetch(indices) -> List:
+    return [_WORKER_DS.get(int(i)) for i in indices]
+
+
 class DataLoader:
     """Batches of a dataset decoded a few batches ahead by a thread pool:
     NHWC numpy arrays, or for items that are tuples a tuple of columns, the
@@ -106,20 +137,44 @@ class DataLoader:
     batch is dropped unless `drop_last` is false. With `shuffle`, each
     epoch visits the samples in a permutation seeded by `seed + epoch`
     (`set_epoch`), as the JAX package's loader does
-    (favae_tpu/data/pipeline.py:158-220); without, in order."""
+    (favae_tpu/data/pipeline.py:158-220); without, in order.
+
+    `use_processes` decodes in a persistent pool of `num_workers` worker
+    processes instead of threads (favae_tpu/data/pipeline.py:186-243), made
+    at the first batch and kept until `close()`. They start from a
+    forkserver (a forked child of a process that has initialised CUDA is
+    unusable), so the dataset must pickle."""
 
     PREFETCH = 2  # batches decoded ahead of the consumer
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = True):
+                 drop_last: bool = True, use_processes: bool = False):
         self.ds = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.use_processes = use_processes
         self.epoch = 0
+        self._pool = None
+
+    def _process_pool(self) -> ProcessPoolExecutor:
+        if self._pool is None:
+            methods = multiprocessing.get_all_start_methods()
+            ctx = multiprocessing.get_context(
+                "forkserver" if "forkserver" in methods else "spawn")
+            self._pool = ProcessPoolExecutor(
+                self.num_workers, mp_context=ctx, initializer=_proc_init,
+                initargs=(self.ds,))
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker processes, if any."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
 
     def __len__(self):
         if self.drop_last:
@@ -146,18 +201,30 @@ class DataLoader:
         n_batches = len(self)
         idx = self._indices()
 
+        def indices(b):
+            return idx[b * self.batch_size:(b + 1) * self.batch_size]
+
+        if self.use_processes:
+            yield from self._run(self._process_pool(),
+                                 lambda b: (_proc_fetch, indices(b)),
+                                 n_batches, self.collate)
+            return
+
         def fetch(b):
-            lo = b * self.batch_size
-            return self.collate([self.ds.get(int(i))
-                                 for i in idx[lo:lo + self.batch_size]])
+            return self.collate([self.ds.get(int(i)) for i in indices(b)])
 
         with ThreadPoolExecutor(self.num_workers) as pool:
-            pending = [pool.submit(fetch, b)
-                       for b in range(min(self.PREFETCH + 1, n_batches))]
-            next_submit = len(pending)
-            for _ in range(n_batches):
-                out = pending.pop(0).result()
-                if next_submit < n_batches:
-                    pending.append(pool.submit(fetch, next_submit))
-                    next_submit += 1
-                yield out
+            yield from self._run(pool, lambda b: (fetch, b), n_batches,
+                                 lambda out: out)
+
+    def _run(self, pool, job, n_batches, finish) -> Iterator:
+        """Batches in order, `PREFETCH` + 1 of them submitted ahead."""
+        pending = [pool.submit(*job(b))
+                   for b in range(min(self.PREFETCH + 1, n_batches))]
+        next_submit = len(pending)
+        for _ in range(n_batches):
+            out = finish(pending.pop(0).result())
+            if next_submit < n_batches:
+                pending.append(pool.submit(*job(next_submit)))
+                next_submit += 1
+            yield out

@@ -40,8 +40,8 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
 class ActNorm(nn.Module):
     """Per-channel affine scale * (x + loc) (reference:
-    models/discriminator.py:53-138). Its data-dependent first-batch init is
-    not yet ported: loaded or default parameters are used as they are."""
+    models/discriminator.py:53-138); `data_init` sets loc and scale from a
+    first batch (`actnorm_data_init_`)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -50,6 +50,38 @@ class ActNorm(nn.Module):
 
     def forward(self, x):
         return self.scale.to(x.dtype) * (x + self.loc.to(x.dtype))
+
+    @staticmethod
+    def batch_init_values(x: torch.Tensor):
+        """(loc, scale) (C,) f32 of an NCHW batch: -mean and
+        1 / (std + 1e-6) per channel over N, H, W, std with ddof 1
+        (favae_tpu/models/discriminator.py:111-117)."""
+        x = x.float()
+        return -x.mean(dim=(0, 2, 3)), 1.0 / (x.std(dim=(0, 2, 3)) + 1e-6)
+
+    @torch.no_grad()
+    def data_init(self, x: torch.Tensor) -> torch.Tensor:
+        """Set loc and scale from `x` and return the output with them."""
+        loc, scale = self.batch_init_values(x)
+        self.loc.copy_(loc.view_as(self.loc))
+        self.scale.copy_(scale.view_as(self.scale))
+        return self(x)
+
+
+@torch.no_grad()
+def actnorm_data_init_(disc: nn.Module, x: torch.Tensor) -> int:
+    """The reference's first-forward ActNorm init over a PatchDiscriminator
+    on the NCHW batch `x`: each ActNorm takes its input's statistics, and
+    its output with them feeds the layers after it, so later ActNorms see
+    initialised inputs (favae_tpu/models/discriminator.py:85-117). Returns
+    the number of ActNorms initialised."""
+    h, n = x.to(disc.dtype), 0
+    for layer in disc.main:
+        if isinstance(layer, ActNorm):
+            h, n = layer.data_init(h), n + 1
+        else:
+            h = layer(h)
+    return n
 
 
 def _conv(cin, cout, stride, bias, dtype) -> Conv2d:

@@ -22,7 +22,8 @@ from favae_tpu_torch.config import DSL_NONPAIR, DSL_PAIR, VQGANConfig
 from favae_tpu_torch.models.codec import Decoder, Encoder
 from favae_tpu_torch.models.discriminator import (build_discriminator,
                                                   init_discriminator_)
-from favae_tpu_torch.models.quantizer import (CodebookState, VectorQuantize,
+from favae_tpu_torch.models.quantizer import (CodebookState, QuantizerDraws,
+                                              VectorQuantize,
                                               init_codebook_state)
 from favae_tpu_torch.ops.gaussian import gaussian_blur_nhwc
 
@@ -73,15 +74,18 @@ class VQGANFCM(nn.Module):
         return _nhwc(x), [_nhwc(t) for t in taps], _nhwc(h_pre)
 
     def generate(self, x, cb_state: Optional[CodebookState] = None, *,
-                 train: bool = False, inference: bool = False):
+                 train: bool = False, inference: bool = False,
+                 draws: Optional[QuantizerDraws] = None):
         """The generator's stage-0 body: encode -> quantize -> decode, taps
         blurred unless `inference` (non-pairwise in the codec, pairwise here
         when also `train`), the quantizer EMA-updating when `train`
         (favae_tpu/models/vqgan.py:110-124). Returns a dict of x_recon,
         enc_feats, dec_feats, h_pre (NHWC), loss_q, indices and cb_state,
-        the new codebook state (the module's buffers are not written)."""
+        the new codebook state (the module's buffers are not written).
+        `draws` are the quantizer's random draws (`draw_quantizer`)."""
         z, enc = self.encoder(_nchw(x), blur=not inference)
-        z_q, idx, loss_q, state = self.quantizer(z, cb_state, train=train)
+        z_q, idx, loss_q, state = self.quantizer(z, cb_state, train=train,
+                                                 draws=draws)
         x_rec, dec, h_pre = self.decoder(z_q, blur=not inference)
         enc, dec = [_nhwc(t) for t in enc], [_nhwc(t) for t in dec]
         if self.cfg.dsl_mode == DSL_PAIR and train and not inference:
@@ -89,6 +93,17 @@ class VQGANFCM(nn.Module):
         return dict(x_recon=_nhwc(x_rec), enc_feats=enc, dec_feats=dec,
                     h_pre=_nhwc(h_pre), loss_q=loss_q, indices=idx,
                     cb_state=state)
+
+    @torch.no_grad()
+    def codebook_inputs(self, x):
+        """The (projected) latent vectors (B h w, D) f32 as the codebook
+        sees them, before any l2-normalisation, for the first-batch k-means
+        init (favae_tpu/models/vqgan.py:80-91); call in eval mode."""
+        z, _ = self.encoder(_nchw(x))
+        flat = _nhwc(z).reshape(-1, z.shape[1]).float()
+        if self.quantizer.project_in is not None:
+            flat = self.quantizer.project_in(flat)
+        return flat
 
     def blur_taps_pairwise(self, enc_feats, dec_feats):
         """Pairwise DSL: encoder tap i and decoder tap j blurred with the

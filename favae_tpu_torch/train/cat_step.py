@@ -11,13 +11,9 @@ models/txt_cond_transformer.py:238-265 (configure_optimizers). Decay rules:
   axial positional embeddings, the start token and the null kv (the
   reference's filter excludes only torch's own LayerNorm and Embedding).
 
-`CATAdamW` is one hand-written update over lists of tensors
-(`torch._foreach_*`), as optax computes it: the moments update in f32 from
-their stored values (b * m in the storage dtype, as optax's weakly typed
-product), the bias correction reads the f32 moments before they are cast
-to their storage dtypes (`adam_mu_dtype`, `adam_nu_dtype`), and the cast
-happens once at the end; with f32 moments it is `optax.adamw` (and
-`torch.optim.AdamW`): p <- p - lr (m^/(sqrt(v^) + eps) + wd p). The
+`CATAdamW` is `train/adam.py`'s optax-exact update with the decay mask
+and the moments' storage dtypes (`adam_mu_dtype`, `adam_nu_dtype`); with
+f32 moments it is `optax.adamw` (and `torch.optim.AdamW`). The
 frozen FA-VAE and CLIP encodes run without a graph inside the
 full-pipeline step; the latent step starts from their cached outputs.
 """
@@ -27,13 +23,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from favae_tpu_torch.config import CATConfig
 from favae_tpu_torch.models.gpt import GPT
 from favae_tpu_torch.models.txt_cond import CATModel
+from favae_tpu_torch.train.adam import OptaxAdam
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -46,87 +42,22 @@ def decay_mask(gpt: nn.Module) -> Dict[str, bool]:
             for n, _ in gpt.named_parameters()}
 
 
-class CATAdamW:
+class CATAdamW(OptaxAdam):
     """AdamW over a GPT's parameters with `decay_mask`, b1 0.9, b2 0.95,
     eps 1e-8, weight decay 0.01 (the CATConfig's), and storage dtypes for
-    the two moments. `step(lr)` applies one update from the parameters'
-    `.grad`."""
+    the two moments (`OptaxAdam`). `step(lr)` applies one update from the
+    parameters' `.grad`."""
 
     def __init__(self, gpt: GPT, cfg: CATConfig, eps: float = 1e-8):
         mask = decay_mask(gpt)
         named = [(n, p) for n, p in gpt.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
-        self.params = [p for _, p in named]
-        self.decayed = [i for i, (n, _) in enumerate(named) if mask[n]]
-        self.b1, self.b2, self.eps = cfg.adam_b1, cfg.adam_b2, eps
-        self.weight_decay = cfg.weight_decay
-        self.mu_dtype = getattr(torch, cfg.adam_mu_dtype)
-        self.nu_dtype = getattr(torch, cfg.adam_nu_dtype)
-        self.mu = [torch.zeros_like(p, dtype=self.mu_dtype)
-                   for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=self.nu_dtype)
-                   for p in self.params]
-        self.count = 0
-
-    @staticmethod
-    def _decayed(store: List[torch.Tensor], b: float) -> List[torch.Tensor]:
-        if store[0].dtype == torch.float32:
-            torch._foreach_mul_(store, b)
-            return store
-        b = float(torch.tensor(b, dtype=store[0].dtype))
-        return [m.float() for m in torch._foreach_mul(store, b)]
-
-    @torch.no_grad()
-    def step(self, lr: float) -> None:
-        grads = [p.grad for p in self.params]
-        self.count += 1
-        # (1 - b) g + b m and (1 - b) g^2 + b v (optax's update_moment): b m
-        # in the storage dtype with b rounded to it, as optax's weakly typed
-        # product is, and the sum in f32; in place where the store is f32
-        mu = self._decayed(self.mu, self.b1)
-        nu = self._decayed(self.nu, self.b2)
-        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
-        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
-        # bias corrections as optax forms them: f32 powers of f32 decays
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.int32(self.count))
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.int32(self.count))
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, denom)
-        del denom
-        if self.weight_decay and self.decayed:
-            torch._foreach_add_([upd[i] for i in self.decayed],
-                                [self.params[i] for i in self.decayed],
-                                alpha=self.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
-        if mu is not self.mu:
-            torch._foreach_copy_(self.mu, mu)
-        if nu is not self.nu:
-            torch._foreach_copy_(self.nu, nu)
-
-    def state_dict(self) -> Dict:
-        """The moments in their storage dtypes and the update count (what
-        optax's state holds), as lists in the parameters' order."""
-        return {"mu": list(self.mu), "nu": list(self.nu),
-                "count": self.count}
-
-    @torch.no_grad()
-    def load_state_dict(self, sd: Dict) -> None:
-        """Copy a `state_dict` of an optimizer over the same GPT and
-        moment dtypes into this one."""
-        for name in ("mu", "nu"):
-            ours, theirs = getattr(self, name), sd[name]
-            if len(theirs) != len(ours) or any(
-                    a.shape != b.shape or a.dtype != b.dtype
-                    for a, b in zip(ours, theirs)):
-                raise ValueError(
-                    f"the checkpoint's {name} does not match this "
-                    f"optimizer's parameters and {name} dtype "
-                    f"({ours[0].dtype})")
-            torch._foreach_copy_(ours, list(theirs))
-        self.count = int(sd["count"])
+        super().__init__(
+            [p for _, p in named], cfg.adam_b1, cfg.adam_b2, eps,
+            cfg.weight_decay,
+            [i for i, (n, _) in enumerate(named) if mask[n]],
+            getattr(torch, cfg.adam_mu_dtype),
+            getattr(torch, cfg.adam_nu_dtype))
 
 
 @dataclasses.dataclass

@@ -242,19 +242,20 @@ class CATTrainer:
 
     def fit(self, train_loader, val_loader, epochs: Optional[int] = None,
             print_steps: int = 10, img_steps: int = 1000) -> None:
-        """Train from `start_epoch` to `epochs`, validating (where there is
-        a val loader) and checkpointing after each epoch; a preview every
+        """Train from `start_epoch` to `epochs`, validating (where the val
+        loader has a batch: an empty one scores inf, as in the JAX package)
+        and checkpointing after each epoch; a preview every
         `img_steps` global steps (none with 0) and after each
         validation."""
         epochs = epochs or self.cfg.epochs
         if self.cache_latents:
             train_loader = self.latent_loader(train_loader)
-            if val_loader is not None:
+            if val_loader:
                 val_loader = self.latent_loader(val_loader)
         for epoch in range(self.start_epoch, epochs):
             self.train_epoch(train_loader, epoch, print_steps, img_steps)
-            score = (self.validate(val_loader, epoch)
-                     if val_loader is not None else float("inf"))
+            score = (self.validate(val_loader, epoch) if val_loader
+                     else float("inf"))
             self.ckpt.on_epoch_end(epoch, score, self.state_dict(),
                                    is_last=epoch == epochs - 1)
         self.writer.close()

@@ -7,24 +7,31 @@ and quantizer, with the model-level pairwise-DSL sigmas in a group of their
 own at `sigma_lr` (non-pairwise sigmas live in the encoder and decoder and
 take the main lr, as in the reference), and a second Adam over the
 discriminator. `torch.optim.Adam` with eps 1e-8 is the same update as
-`optax.adam`. The JAX package's state is one functional pytree; here the
+`optax.adam`; with `adam_mu_dtype="bfloat16"` both optimizers store the
+first moment in bf16, as optax's `mu_dtype` does
+(favae_tpu/train/favae_state.py:48-63), through `GroupAdam` (one
+`OptaxAdam` a group, as optax's multi_transform keeps one Adam state a
+group). The JAX package's state is one functional pytree; here the
 parameters, buffers and optimizer moments are updated in place, and
 `state_dict` / `load_state_dict` carry what Orbax saves there: the model's
 parameters and buffers (codebook EMA, discriminator BatchNorm statistics),
-both optimizers and the step. The frozen LPIPS is not saved; it comes
-from `--lpips_ckpt`.
+both optimizers and the step, plus the state of `generator`, the
+train step's source of random draws (the quantizer options'), so that a
+resumed run draws what an uninterrupted one would. The frozen LPIPS is
+not saved; it comes from `--lpips_ckpt`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from favae_tpu_torch.config import LossConfig, TrainConfig, VQGANConfig
 from favae_tpu_torch.models.lpips import LPIPS
 from favae_tpu_torch.models.vqgan import VQGANFCM, build_model
+from favae_tpu_torch.train.adam import OptaxAdam
 
 
 def split_params(model: VQGANFCM) -> Tuple[List[torch.nn.Parameter],
@@ -42,18 +49,53 @@ def split_params(model: VQGANFCM) -> Tuple[List[torch.nn.Parameter],
     return main, sigma, disc
 
 
+class GroupAdam:
+    """Adam over groups of parameters, each with its own lr and its own
+    `OptaxAdam` state (optax's multi_transform of adam chains), with the
+    first moment stored in `mu_dtype`; the part of `torch.optim.Adam`'s
+    interface that the train step and the checkpoints use."""
+
+    def __init__(self, groups: List[Tuple[List[torch.nn.Parameter], float]],
+                 train_cfg: TrainConfig, mu_dtype: torch.dtype):
+        self.parts = [(OptaxAdam(params, train_cfg.adam_b1,
+                                 train_cfg.adam_b2, mu_dtype=mu_dtype), lr)
+                      for params, lr in groups]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for adam, _ in self.parts:
+            for p in adam.params:
+                p.grad = None
+
+    def step(self) -> None:
+        for adam, lr in self.parts:
+            adam.step(lr)
+
+    def state_dict(self) -> Dict:
+        return {"groups": [adam.state_dict() for adam, _ in self.parts]}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        if len(sd["groups"]) != len(self.parts):
+            raise ValueError("the checkpoint's optimizer has another number "
+                             "of parameter groups")
+        for (adam, _), part in zip(self.parts, sd["groups"]):
+            adam.load_state_dict(part)
+
+
+Optimizer = Union[torch.optim.Adam, GroupAdam]
+
+
 def make_optimizers(model: VQGANFCM, train_cfg: TrainConfig, lr: float
-                    ) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
-    if train_cfg.adam_mu_dtype != "float32":
-        raise NotImplementedError(
-            f"adam_mu_dtype={train_cfg.adam_mu_dtype} is not yet ported to "
-            "favae_tpu_torch")
+                    ) -> Tuple[Optimizer, Optimizer]:
     main, sigma, disc = split_params(model)
+    groups_g = [(main, lr)] + ([(sigma, train_cfg.sigma_lr)] if sigma else [])
+    if train_cfg.adam_mu_dtype != "float32":
+        mu = getattr(torch, train_cfg.adam_mu_dtype)
+        return (GroupAdam(groups_g, train_cfg, mu),
+                GroupAdam([(disc, lr)], train_cfg, mu))
     betas = (train_cfg.adam_b1, train_cfg.adam_b2)
-    groups: List[Dict] = [{"params": main}]
-    if sigma:
-        groups.append({"params": sigma, "lr": train_cfg.sigma_lr})
-    opt_g = torch.optim.Adam(groups, lr=lr, betas=betas, eps=1e-8)
+    opt_g = torch.optim.Adam([{"params": p, "lr": g_lr}
+                              for p, g_lr in groups_g],
+                             lr=lr, betas=betas, eps=1e-8)
     opt_d = torch.optim.Adam(disc, lr=lr, betas=betas, eps=1e-8)
     return opt_g, opt_d
 
@@ -62,8 +104,9 @@ def make_optimizers(model: VQGANFCM, train_cfg: TrainConfig, lr: float
 class FavaeTrainState:
     model: VQGANFCM
     lpips: LPIPS
-    opt_g: torch.optim.Adam
-    opt_d: torch.optim.Adam
+    opt_g: Optimizer
+    opt_d: Optimizer
+    generator: Optional[torch.Generator] = None
     step: int = 0
 
     @classmethod
@@ -87,12 +130,16 @@ class FavaeTrainState:
             lpips.load_state_dict(lpips_state_dict, strict=True)
         lpips.to(dev)
         opt_g, opt_d = make_optimizers(model, train_cfg, lr)
-        return cls(model=model, lpips=lpips, opt_g=opt_g, opt_d=opt_d)
+        # seed + 1, as the JAX trainer's PRNGKey(seed + 1) for its steps
+        gen = torch.Generator(device=dev).manual_seed(train_cfg.seed + 1)
+        return cls(model=model, lpips=lpips, opt_g=opt_g, opt_d=opt_d,
+                   generator=gen)
 
     def state_dict(self) -> Dict:
         return {"model": self.model.state_dict(),
                 "opt_g": self.opt_g.state_dict(),
-                "opt_d": self.opt_d.state_dict(), "step": self.step}
+                "opt_d": self.opt_d.state_dict(), "step": self.step,
+                "generator": self.generator.get_state()}
 
     def load_state_dict(self, sd: Dict) -> None:
         """Restore a `state_dict` into this state, whose optimizers must be
@@ -101,8 +148,12 @@ class FavaeTrainState:
         group exists only for pairwise DSL."""
         self.model.load_state_dict(sd["model"], strict=True)
         for opt, key in ((self.opt_g, "opt_g"), (self.opt_d, "opt_d")):
-            opt.load_state_dict(_steps_on_host(sd[key]))
+            opt.load_state_dict(_steps_on_host(sd[key])
+                                if isinstance(opt, torch.optim.Optimizer)
+                                else sd[key])
         self.step = int(sd["step"])
+        if "generator" in sd:  # checkpoints from before the draws lack it
+            self.generator.set_state(sd["generator"].cpu())
 
 
 def _steps_on_host(opt_sd: Dict) -> Dict:

@@ -23,16 +23,24 @@ the BatchNorm statistics, and the discriminator's Adam step. With the
 discriminator off, stage 0 still runs D(x_recon) in train mode for the
 running statistics.
 
+The quantizer's random draws (gumbel noise, expiry candidates, the
+orthogonal regulariser's code sample) come from `state.generator`, one set
+for stage 0 and one for the stage-1 recompute, unless the caller passes
+both (the parity tests pass the JAX package's). With dead-code expiry on,
+`cb_replaced` counts the codes whose EMA count equals the threshold after
+stage 0, as the JAX step does.
+
 The epoch gates (disc_on, ffl_on) pick one of four step functions.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from favae_tpu_torch.config import LossConfig, TrainConfig, VQGANConfig
+from favae_tpu_torch.models.quantizer import QuantizerDraws, draw_quantizer
 from favae_tpu_torch.ops.ffl import feature_tap_ffl, focal_frequency_loss
 from favae_tpu_torch.ops.gaussian import gaussian_blur_nhwc
 from favae_tpu_torch.ops.losses import hinge_d_loss, hinge_g_loss
@@ -78,18 +86,28 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
                     train_cfg: TrainConfig, *, disc_on: bool, ffl_on: bool
-                    ) -> Callable[[FavaeTrainState, torch.Tensor],
-                                  Tuple[FavaeTrainState, Metrics]]:
+                    ) -> Callable[..., Tuple[FavaeTrainState, Metrics]]:
     """The train step for one (disc_on, ffl_on) gate combination:
-    step(state, x NHWC) -> (state, metrics), the state updated in place and
-    the metrics 0-d tensors (no host sync) plus `x_recon`."""
+    step(state, x NHWC, draws=None) -> (state, metrics), the state updated
+    in place and the metrics 0-d tensors (no host sync) plus `x_recon`.
+    `draws`, where given, holds the quantizer draws of stage 0 and of the
+    stage-1 recompute; else they come from `state.generator`."""
     pw = loss_cfg.perceptual_weight
     cw = loss_cfg.codebook_weight
     dw = loss_cfg.disc_weight
     spectral = loss_cfg.spectral_dtype
-    k_codes = model_cfg.quantizer.codebook_size
+    qcfg = model_cfg.quantizer
+    k_codes = qcfg.codebook_size
+    f = model_cfg.codec.downsample_factor
 
-    def train_step(state: FavaeTrainState, x: torch.Tensor):
+    def draw(state, x, given, i) -> QuantizerDraws:
+        if given is not None:
+            return given[i]
+        n = x.shape[0] * (x.shape[1] // f) * (x.shape[2] // f)
+        return draw_quantizer(qcfg, n, state.generator)
+
+    def train_step(state: FavaeTrainState, x: torch.Tensor,
+                   draws: Optional[Sequence[QuantizerDraws]] = None):
         model, lpips = state.model, state.lpips
         model.train()
         x = to_unit_range(x)
@@ -97,12 +115,18 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
             fx_n = lpips.features(x)
 
         # 1. generator forward with a graph
-        outs = model.generate(x, model.codebook_state(), train=True)
+        outs = model.generate(x, model.codebook_state(), train=True,
+                              draws=draw(state, x, draws, 0))
         x_recon0, loss_q, h_pre = outs["x_recon"], outs["loss_q"], outs["h_pre"]
         enc_feats, dec_feats = outs["enc_feats"], outs["dec_feats"]
         with torch.no_grad():
             m: Metrics = {"loss_q": loss_q.detach(),
                           **codebook_telemetry(outs["indices"], k_codes)}
+            if qcfg.threshold_ema_dead_code > 0:
+                # an expired code's count is set to exactly the threshold
+                m["cb_replaced"] = (outs["cb_state"].cluster_size
+                                    == qcfg.threshold_ema_dead_code
+                                    ).float().sum()
 
         # 2. heads at detached leaves
         xr = _leaf(x_recon0)
@@ -176,9 +200,10 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
         m["loss_g"] = loss_g
 
         # 4. one backward through the generator, then Adam
-        roots = [x_recon0, loss_q]
-        cts = [ct_xr.to(x_recon0.dtype),
-               torch.tensor(cw, dtype=loss_q.dtype, device=x.device)]
+        roots, cts = [x_recon0], [ct_xr.to(x_recon0.dtype)]
+        if loss_q.requires_grad:  # not with only the orthogonal regulariser
+            roots.append(loss_q)
+            cts.append(torch.tensor(cw, dtype=loss_q.dtype, device=x.device))
         for t, ct in zip((*enc_feats, *dec_feats), ct_taps):
             if ct is not None:
                 roots.append(t)
@@ -194,7 +219,8 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
             if train_cfg.faithful_stage1_recompute:
                 with torch.no_grad():
                     out1 = model.generate(x, model.codebook_state(),
-                                          train=True, inference=True)
+                                          train=True, inference=True,
+                                          draws=draw(state, x, draws, 1))
                 x_recon1 = out1["x_recon"]
                 model.quantizer.set_state(out1["cb_state"])
             else:

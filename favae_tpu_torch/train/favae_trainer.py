@@ -8,8 +8,10 @@ a recon grid on `img_steps` is fetched only when a writer records it. Step
 times come from CUDA events recorded at each step's start on the card (host
 clock on the CPU), so timing adds no sync. Each epoch ends with
 `CheckpointManager.on_epoch_end` (latest, and best on improvement); `resume`
-restores a run. The first-batch data-dependent inits (k-means codebook,
-ActNorm) are not yet ported and raise.
+restores a run. Before the first epoch of a fresh run, `fit` runs the
+first-batch data-dependent inits: the k-means codebook and ActNorm. The
+state's generator, seeded from the config and kept in the checkpoints,
+draws k-means' first permutation and the steps' quantizer draws.
 """
 
 from __future__ import annotations
@@ -23,15 +25,24 @@ import torch
 
 from favae_tpu_torch import resolve_device
 from favae_tpu_torch.config import LossConfig, TrainConfig, VQGANConfig
-from favae_tpu_torch.models.quantizer import check_ported
+from favae_tpu_torch.models.discriminator import actnorm_data_init_
+from favae_tpu_torch.models.quantizer import CodebookState, kmeans, l2norm
 from favae_tpu_torch.profiling import ProfileWindow, StepClock
 from favae_tpu_torch.train.favae_state import (FavaeTrainState,
                                                make_optimizers)
-from favae_tpu_torch.train.favae_step import make_eval_step, make_train_step
+from favae_tpu_torch.train.favae_step import (make_eval_step,
+                                              make_train_step, to_unit_range)
 from favae_tpu_torch.utils.checkpoint import (CheckpointManager,
                                               restore_checkpoint)
 from favae_tpu_torch.utils.logging import (MetricWriter, device_memory_mib,
                                            print0)
+
+
+def _host_f32(x: np.ndarray) -> np.ndarray:
+    """A uint8 [0, 255] or f32 [-1, 1] host batch as f32 [-1, 1], for the
+    recon grids (favae_tpu/train/favae_trainer.py:31-36)."""
+    x = np.asarray(x)
+    return x.astype(np.float32) / 127.5 - 1.0 if x.dtype == np.uint8 else x
 
 
 class FavaeTrainer:
@@ -40,12 +51,6 @@ class FavaeTrainer:
                  lpips_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  log_dir: Optional[str] = None,
                  enable_profiler: bool = False):
-        check_ported(model_cfg.quantizer)
-        dc = model_cfg.discriminator
-        if dc.kind == "patch" and dc.use_actnorm:
-            raise NotImplementedError(
-                "ActNorm's data-dependent init is not yet ported to "
-                "favae_tpu_torch")
         self.model_cfg, self.loss_cfg, self.train_cfg = (model_cfg, loss_cfg,
                                                          train_cfg)
         self.save_dir = save_dir
@@ -105,6 +110,45 @@ class FavaeTrainer:
         return torch.from_numpy(x).to(self.device)
 
     # ------------------------------------------------------------------
+    def _data_dependent_init(self, x0: np.ndarray,
+                             first: Optional[torch.Tensor] = None) -> None:
+        """The first-batch inits the reference makes lazily in its first
+        training forward (favae_tpu/train/favae_trainer.py:128-200): the
+        k-means codebook on the batch's codebook inputs (embed, cluster_size
+        and embed_avg replaced; reference: models/l2_quantize.py:352-368),
+        its first permutation `first` or one drawn from the state's
+        generator, and each ActNorm's loc and scale from its input in
+        D(x_recon) of an inference forward (reference:
+        models/discriminator.py:67-86)."""
+        qcfg = self.model_cfg.quantizer
+        dcfg = self.model_cfg.discriminator
+        use_actnorm = dcfg.use_actnorm and dcfg.kind == "patch"
+        if not (qcfg.kmeans_init or use_actnorm):
+            return
+        model = self.state.model
+        model.eval()
+        x = to_unit_range(self._to_device(np.asarray(x0)))
+        if qcfg.kmeans_init:
+            flat = model.codebook_inputs(x)
+            if qcfg.use_cosine_sim:
+                flat = l2norm(flat)
+            if first is None:
+                first = torch.randperm(flat.shape[0], device=self.device,
+                                       generator=self.state.generator)
+            means, bins = kmeans(flat, qcfg.codebook_size, qcfg.kmeans_iters,
+                                 qcfg.use_cosine_sim, first)
+            model.quantizer.set_state(CodebookState(
+                embed=means, cluster_size=bins, embed_avg=means))
+            print0(f"k-means codebook init: {int((bins > 0).sum())}"
+                   f"/{qcfg.codebook_size} bins populated")
+        if use_actnorm:
+            x_recon, _ = model.reconstruct(x)
+            n = actnorm_data_init_(model.discriminator,
+                                   x_recon.clone().permute(0, 3, 1, 2))
+            print0(f"ActNorm data-dependent init: {n} layers initialized "
+                   "from the first batch")
+
+    # ------------------------------------------------------------------
     def train_epoch(self, loader, epoch: int) -> None:
         cfg = self.train_cfg
         disc_on = epoch >= self.loss_cfg.disc_start_epochs
@@ -140,7 +184,7 @@ class FavaeTrainer:
                     if k.startswith("loss") or k in ("weight_d",
                                                      "imgs_per_sec")))
             if step % cfg.img_steps == 0:
-                self.writer.recon_grid("train/img-recon", x[:4],
+                self.writer.recon_grid("train/img-recon", _host_f32(x[:4]),
                                        m["x_recon"][:4], gstep)
         clock.mark()
         if window is not None:
@@ -182,7 +226,7 @@ class FavaeTrainer:
         row = dict(zip(keys, (totals / max(n, 1)).tolist()))
         self.writer.scalars("val", row, epoch)
         if last is not None:
-            self.writer.recon_grid("val/img-recon", last[0][:4],
+            self.writer.recon_grid("val/img-recon", _host_f32(last[0][:4]),
                                    last[1][:4], epoch)
         row.update(epoch=epoch, images=n)
         self.val.append(row)
@@ -192,13 +236,20 @@ class FavaeTrainer:
 
     # ------------------------------------------------------------------
     def fit(self, train_loader, val_loader, epochs: Optional[int] = None):
-        """Train from `start_epoch` to `epochs`, validating (where there is
-        a val loader) and checkpointing after each epoch."""
+        """Train from `start_epoch` to `epochs`, after the first-batch
+        inits in a fresh run, validating (where the val loader has a batch:
+        an empty one scores inf, as in the JAX package) and checkpointing
+        after each epoch."""
         epochs = epochs or self.train_cfg.epochs
+        if self.start_epoch == 0:
+            train_loader.set_epoch(0)
+            first = next(iter(train_loader), None)
+            if first is not None:
+                self._data_dependent_init(first)
         for epoch in range(self.start_epoch, epochs):
             self.train_epoch(train_loader, epoch)
-            score = (self.validate(val_loader, epoch)
-                     if val_loader is not None else float("inf"))
+            score = (self.validate(val_loader, epoch) if val_loader
+                     else float("inf"))
             self.ckpt.on_epoch_end(epoch, score, self.state.state_dict(),
                                    is_last=epoch == epochs - 1)
         self.writer.close()

@@ -312,3 +312,56 @@ def test_cat_previews_leave_the_trajectory(tmp_path):
         ("val/from-cond", 0)]
     assert calls[0][2].shape == (4, 64, 64, 3)
     _assert_same_tree(shown.state_dict(), plain.state_dict())
+
+
+# ---------------------------------------------------------------------------
+# an empty validation set
+# ---------------------------------------------------------------------------
+
+def _jax_fit_with_empty_val(trainer, val_ds):
+    """`fit` of a JAX trainer for one epoch with no train batch (nothing
+    to compile) and a val loader of no batch; its MetricWriter's val rows
+    are counted."""
+    from favae_tpu.data.pipeline import DataLoader as JaxLoader
+    from favae_tpu.data.pipeline import SyntheticDataset as JaxSynthetic
+    rows = []
+    scalars = trainer.writer.scalars
+    trainer.writer.scalars = lambda tag, *a: (rows.append(tag)
+                                              or scalars(tag, *a))
+    train = JaxLoader(JaxSynthetic(32, size=0), batch_size=8, num_workers=1)
+    val = JaxLoader(val_ds, batch_size=8, shuffle=False, num_workers=1)
+    assert len(val) == 0
+    trainer.fit(train, val, epochs=1)
+    return rows
+
+
+@pytest.mark.parametrize("trainer", ["favae", "cat"])
+def test_val_set_smaller_than_a_batch_scores_inf(tmp_path, trainer):
+    """A val file with fewer images than one batch validates nothing: the
+    epoch's score is inf, there is no val row and no `best`, as in the JAX
+    package (its `fit` tests `if val_loader`, and the loader's length is
+    0); `latest` is written with best_score inf."""
+    if trainer == "favae":
+        tr, train, _ = _favae_trainer(tmp_path / "port")
+        val = DataLoader(SyntheticDataset(32, size=1, seed=7), 2,
+                         num_workers=1)
+        tr.fit(train, val, epochs=1)
+    else:
+        tr, train, _ = _cat_trainer(tmp_path / "port")
+        val = DataLoader(SyntheticDataset(64, size=3, seed=7,
+                                          with_captions=True), 4,
+                         num_workers=1)
+        tr.fit(train, val, epochs=1, img_steps=0)
+    assert len(val) == 0 and tr.val == [] and len(tr.history) == 2
+    assert tr.ckpt.best_score == float("inf")
+    assert not (tmp_path / "port" / "best").exists()
+    _, meta = restore_checkpoint(str(tmp_path / "port" / "latest"))
+    assert meta["epoch"] == 1 and meta["best_score"] == float("inf")
+    if trainer == "favae":  # the JAX package's trainer, the same way
+        from favae_tpu.data.pipeline import SyntheticDataset as JaxSynthetic
+        from tests.test_data_and_trainer import tiny_setup
+        jtr = tiny_setup(tmp_path, "jax")
+        rows = _jax_fit_with_empty_val(jtr, JaxSynthetic(32, size=4))
+        assert "val" not in rows and jtr.ckpt.best_score == float("inf")
+        assert not (tmp_path / "jax" / "best").exists()
+        assert (tmp_path / "jax" / "latest").exists()

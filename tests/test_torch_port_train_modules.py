@@ -31,6 +31,7 @@ from favae_tpu_torch.models import discriminator as tdisc
 from favae_tpu_torch.models.lpips import LPIPS
 from favae_tpu_torch.models.quantizer import (CodebookState, VectorQuantize,
                                               codebook_lookup)
+from favae_tpu_torch.models.quantizer import draw_quantizer as tq_draw
 from favae_tpu_torch.ops import ffl, losses
 from favae_tpu_torch.ops.dft import dft2_real_nhwc
 from favae_tpu_torch.ops.gaussian import gaussian_blur_nhwc
@@ -143,13 +144,36 @@ def test_quantizer_straight_through_and_commit_loss():
     ("threshold_ema_dead_code", 0.5), ("kmeans_init", True),
     ("sample_codebook_temp", 1.0), ("orthogonal_reg_weight", 0.1)])
 def test_quantizer_options_not_ported_raise(field, value):
+    """The options that raised before they were ported run now, with the
+    draws `draw_quantizer` makes for them: expiry replaces the codes whose
+    EMA count stays below the threshold, gumbel noise moves codes,
+    the regulariser adds to the loss; k-means is the trainer's first-batch
+    init and leaves the lookup as it was."""
     cfg = dataclasses.replace(tcfg.QuantizerConfig(codebook_size=8, dim=4),
                               **{field: value})
-    state = CodebookState(embed=torch.randn(8, 4),
-                          cluster_size=torch.zeros(8),
-                          embed_avg=torch.zeros(8, 4))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        codebook_lookup(cfg, state, torch.randn(3, 4), train=True)
+    gen = torch.Generator().manual_seed(0)
+    embed = torch.nn.functional.normalize(torch.randn(8, 4, generator=gen),
+                                          dim=-1)
+    state = CodebookState(embed=embed, cluster_size=torch.zeros(8),
+                          embed_avg=embed.clone())
+    x = torch.randn(2, 4, 4, 4, generator=gen)
+    draws = tq_draw(cfg, 32, gen)
+    out, idx, loss, new = VectorQuantize(cfg)(x, state, train=True,
+                                              draws=draws)
+    base_cfg = tcfg.QuantizerConfig(codebook_size=8, dim=4)
+    _, idx0, loss0, new0 = VectorQuantize(base_cfg)(x, state, train=True)
+    assert torch.isfinite(out).all() and torch.isfinite(loss)
+    if field == "threshold_ema_dead_code":
+        replaced = new.cluster_size == 0.5
+        assert replaced.any() and (new.cluster_size >= 0.5).all()
+        assert torch.allclose(new.embed[replaced].norm(dim=-1),
+                              torch.ones(()))
+    elif field == "sample_codebook_temp":
+        assert (idx != idx0).any()
+    elif field == "orthogonal_reg_weight":
+        assert float(loss.detach()) > float(loss0.detach())
+    else:
+        assert torch.equal(idx, idx0) and torch.equal(new.embed, new0.embed)
 
 
 # ---------------------------------------------------------------------------
