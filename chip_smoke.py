@@ -27,7 +27,7 @@ Phases (any failure exits non-zero):
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
 5. train slice: `favae_tpu_torch.cli.train_favae` at celebahq_expe5, batch
-   16, 256 px, bf16, two epochs of 64 synthetic batches (the discriminator
+   16, 256 px, bf16, two epochs of 32 synthetic batches (the discriminator
    from the second) plus validation, saving `latest` and `best` after each
    epoch, then `--resume --epochs 3` for the third, counts zeroed just
    before each run and read just after and held to what the census
@@ -79,7 +79,20 @@ Phases (any failure exits non-zero):
    against its plain version (cosine at A's first batch, euclidean at
    4096 x 1024 x 256); one train step of each config on the card against
    the CPU (A's with its quantizer draws given); `vq_nearest` at each
-   preset's shape and the GroupNorm kernels at every new shape.
+   preset's shape and the GroupNorm kernels at every new shape;
+10. distribution: each run a `torch.distributed.run` subprocess of this
+   script (`--rank-jobs`), killed at a timeout; every rank reads its own
+   launch counts, held to its run's census: (a), (b) `cli.train_favae`
+   (expe5, B=16, 4 steps) and `cli.train_cat` (cat_celebahq, B=16, 4
+   steps) at world 1 over NCCL, bit for bit against the same runs here
+   without a group; (c), (d) two ranks on the one card over gloo, the
+   FA-VAE step data parallel (f32 64 px against one process on the same
+   global batches; bf16 256 px) and `cli.train_cat --tp 2` (2 layers in
+   f32 against `--tp 1`, its checkpoint resumed at tp=1 bit for bit; full
+   depth in bf16), every rank ending with the same state; (e) NCCL with a
+   card a rank on a machine with two, and NCCL's answer to two ranks on
+   one card; then the CLIP vision towers (ViT-L/14, RN50) against the
+   CPU.
 It prints each phase's seconds, a `{"kernels": [...]}` line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. TF32 is
 off for matmuls and cuDNN.
@@ -110,7 +123,7 @@ SLICE_ARGS = ["--preset", "celebahq_expe5", "--synthetic_data",
 TRAIN_ARGS = ["--ds", "chip_smoke", "--output_dir", str(ROOT / "output"),
               "--preset", "celebahq_expe5", "--synthetic_data",
               "--batch_size", "16", "--epochs", "2", "--disc_start_epochs", "1",
-              "--print_steps", "16"]
+              "--synthetic_steps", "32", "--print_steps", "16"]
 # train cross-check bounds, f32 on the card against f32 on the CPU: loss
 # terms and weight_d relative; codebook EMA and BatchNorm running statistics
 # relative to each tensor's largest entry (the stage-1 recompute updates
@@ -2304,8 +2317,8 @@ def actnorm_recorder():
     from favae_tpu_torch.models.discriminator import ActNorm
     orig, rows = ActNorm.data_init, []
 
-    def data_init(self, x):
-        out = orig(self, x)
+    def data_init(self, x, dp=None):
+        out = orig(self, x, dp)
         xd = x.double()
         mean = xd.mean(dim=(0, 2, 3))
         scale = 1.0 / (xd.std(dim=(0, 2, 3)) + 1e-6)
@@ -2589,6 +2602,772 @@ def phase9_kernel_rows(vq_rows, gn_part, bwd_part, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: distribution (ranks of torch.distributed.run), CLIP vision
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 420       # a torchrun launch; a dead or hung rank fails it
+DIST_STEPS = 2             # synthetic train steps an epoch (FA-VAE: 2 epochs)
+CAT_DIST_STEPS = 4         # synthetic CAT train steps (1 epoch)
+FAVAE_DIST_ARGS = ["--output_dir", str(ROOT / "output"), "--synthetic_data",
+                   "--epochs", "2", "--disc_start_epochs", "1",
+                   "--synthetic_steps", str(DIST_STEPS), "--print_steps", "2",
+                   "--num_workers", "4", "--save_every_epoch", "0"]
+CAT_DIST_ARGS = ["--output_dir", str(ROOT / "output"), "--synthetic_data",
+                 "--use_cosine_sim", "--gpt_name", "gpt2_medium",
+                 "--epochs", "1", "--synthetic_steps", str(CAT_DIST_STEPS),
+                 "--print_steps", str(CAT_DIST_STEPS), "--img_steps", "0",
+                 "--num_workers", "4", "--dropout", "0"]
+# CLIP vision towers on the card (f32, TF32 off) against the CPU, relative
+# to the largest feature, as INCEPTION_XCHECK's f32
+CLIP_VISION_XCHECK = 1e-4
+
+
+def tensor_digest(tree):
+    """One int a tensor of a nested dict / list (bit patterns weighted by
+    position and summed on the tensor's device): equal digests are equal
+    bits, between processes too."""
+    import torch
+    out = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            t = x.detach().contiguous().reshape(-1)
+            if t.dtype == torch.bool:
+                t = t.to(torch.uint8)
+            view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[t.element_size()]
+            v = t.view(view).long()
+            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+            out.append(int((v * w).sum()) ^ (int(v.sum()) << 1))
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+    walk(tree)
+    return out
+
+
+class ConcatShards:
+    """The global batches of a data-parallel run for one process: each
+    step the shard loaders' batches concatenated in rank order."""
+
+    def __init__(self, loaders):
+        self.loaders = loaders
+
+    def __len__(self):
+        return len(self.loaders[0])
+
+    def set_epoch(self, epoch):
+        for loader in self.loaders:
+            loader.set_epoch(epoch)
+
+    def __iter__(self):
+        for parts in zip(*self.loaders):
+            yield np.concatenate(parts)
+
+
+def shard_loaders(ds, batch, world, shuffle, seed=0):
+    from favae_tpu_torch.data.pipeline import DataLoader
+    return ConcatShards([DataLoader(ds, batch, num_workers=2, shuffle=shuffle,
+                                    seed=seed, shard_index=i,
+                                    shard_count=world) for i in range(world)])
+
+
+def set_deterministic(on):
+    import torch
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def capturing(cls, step_attr):
+    """Patch `cls.fit` to keep the trainer and count each train step's
+    collectives (`parallel.mesh.STATS`): (box, undo)."""
+    from favae_tpu_torch.parallel.mesh import STATS
+    orig, box = cls.fit, {"steps": []}
+
+    def counted(fn):
+        def step(*a, **kw):
+            before = dict(STATS)
+            out = fn(*a, **kw)
+            box["steps"].append({k: STATS[k] - before[k] for k in STATS})
+            return out
+        return step
+
+    def fit(self, *a, **kw):
+        box["trainer"] = self
+        steps = getattr(self, step_attr)
+        if isinstance(steps, dict):
+            for k in steps:
+                steps[k] = counted(steps[k])
+        else:
+            setattr(self, step_attr, counted(steps))
+        out = orig(self, *a, **kw)
+        if box.get("gather"):
+            box["state"] = self.state_dict()
+        return out
+
+    cls.fit = fit
+    return box, lambda: setattr(cls, "fit", orig)
+
+
+def f32_gpt_build(layers):
+    """`txt_cond.build_cat` with the GPT cut to `layers` and computing in
+    f32 (the same seeded weights): (undo)."""
+    import torch
+    from favae_tpu_torch.models import txt_cond
+    from favae_tpu_torch.models.gpt import GPT
+    orig = txt_cond.build_cat
+
+    def build(cfg, device=None, seed=0, tokenizer=None):
+        cfg = dataclasses.replace(cfg, gpt=dataclasses.replace(
+            cfg.gpt, n_layer=layers))
+        cat = orig(cfg, device, seed, tokenizer)
+        gpt = GPT(cfg.gpt, dtype=torch.float32)
+        gpt.load_state_dict(cat.gpt.state_dict())
+        cat.gpt = gpt.to(device).eval()
+        return cat
+
+    txt_cond.build_cat = build
+    return lambda: setattr(txt_cond, "build_cat", orig)
+
+
+def cat_layers_cfg(argv, layers):
+    from favae_tpu_torch.cli import train_cat
+    cfg = train_cat.config_from_args(train_cat.build_parser().parse_args(argv))
+    return dataclasses.replace(cfg, gpt=dataclasses.replace(
+        cfg.gpt, n_layer=layers))
+
+
+def run_dist_job(job):
+    """One job of a rank (or of the parent with no process group): a train
+    CLI (`favae_cli`, `cat_cli`) or the FA-VAE trainer at f32 64 px
+    (`favae_f32`), with its launches, collectives, memory and state
+    digests."""
+    import torch
+    from favae_tpu_torch.graphs import launch_counts
+    from favae_tpu_torch.parallel.mesh import is_main_process
+    from favae_tpu_torch.parallel.sharding import gpt_param_spec
+    from favae_tpu_torch.train.cat_trainer import CATTrainer
+    from favae_tpu_torch.train.favae_trainer import FavaeTrainer
+    zero_counts()
+    set_deterministic(job.get("deterministic", False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cat = job["kind"] == "cat_cli"
+    box, undo = capturing(CATTrainer if cat else FavaeTrainer,
+                          "train_step" if cat else "_steps")
+    box["gather"] = job.get("gather", False)
+    undo_build = f32_gpt_build(job["layers"]) if job.get("layers") else None
+    log_samples = CATTrainer._log_samples
+    if not job.get("previews", True):
+        CATTrainer._log_samples = lambda self, *a, **kw: None
+    t0 = time.perf_counter()
+    try:
+        if job["kind"] == "favae_cli":
+            from favae_tpu_torch.cli import train_favae
+            out = train_favae.main(job["argv"])
+        elif cat:
+            from favae_tpu_torch.cli import train_cat
+            cfg = (cat_layers_cfg(job["argv"], job["layers"])
+                   if job.get("layers") else None)
+            out = train_cat.main(job["argv"], cfg=cfg)
+        else:
+            out = favae_f32_run(job)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        CATTrainer._log_samples = log_samples
+        if undo_build is not None:
+            undo_build()
+        set_deterministic(False)
+    wall = time.perf_counter() - t0
+    tr = box["trainer"]
+    dev = tr.device
+    counts = {k: v for c in launch_counts() for k, v in c.items()}
+    res = {"kind": job["kind"], "name": job["name"], "lr": out["lr"],
+           "history": out["history"], "val": out["val"],
+           "launches": counts, "collectives_a_step": box["steps"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "wall_s_incl_build": wall, "device": str(dev),
+           "world": tr.mesh.world if tr.mesh is not None else 1}
+    if cat:  # this rank's slices; the replicated part is every rank's
+        gpt = tr.cat.gpt.state_dict()
+        res["state_digest"] = tensor_digest(
+            {"gpt": gpt, "opt": tr.state.opt.state_dict(),
+             "generator": tr.generator.get_state()})
+        res["replicated_digest"] = tensor_digest(
+            {k: v for k, v in gpt.items() if gpt_param_spec(k) is None})
+        if "state" in box and is_main_process():
+            res["gathered_digest"] = tensor_digest(box["state"])
+    else:
+        res["state_digest"] = tensor_digest(tr.state.state_dict())
+        if job.get("save_model") and is_main_process():
+            torch.save({k: v.detach().float().cpu() for k, v in
+                        tr.state.model.state_dict().items()},
+                       job["save_model"])
+    del box, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def favae_f32_configs(batch, dtype="float32"):
+    from favae_tpu_torch.config import (TrainConfig, celebahq_expe5,
+                                        celebahq_expe5_losses)
+    cfg = dataclasses.replace(celebahq_expe5(), compute_dtype=dtype)
+    lc = dataclasses.replace(celebahq_expe5_losses(), spectral_dtype=dtype,
+                             disc_start_epochs=1, ffl_start_epochs=0)
+    return cfg, lc, TrainConfig(batch_size=batch, epochs=2,
+                                save_every_epoch=0)
+
+
+def favae_f32_run(job):
+    """The FA-VAE trainer at expe5 width in f32, 64 px, `job["batch"]` a
+    rank, two epochs of DIST_STEPS (D in the second), no validation: data
+    parallel under a process group (a rank's shard), else on the
+    concatenated shards of `job["world"]` ranks (the same global
+    batches)."""
+    from favae_tpu_torch.data.pipeline import DataLoader, SyntheticDataset
+    from favae_tpu_torch.parallel.mesh import start_rank
+    from favae_tpu_torch.train.favae_trainer import FavaeTrainer
+    world, batch = job["world"], job["batch"]
+    device, mesh = start_rank(job["device"], job.get("backend"))
+    ds = SyntheticDataset(64, size=DIST_STEPS * batch * world, seed=5)
+    if mesh is not None:
+        loader = DataLoader(ds, batch, num_workers=2, shuffle=True,
+                            shard_index=mesh.dp.rank, shard_count=world)
+        cfg, lc, tc = favae_f32_configs(batch)
+    else:
+        loader = shard_loaders(ds, batch, world, shuffle=True)
+        if job.get("reverse_shards"):  # the same batches, rows permuted
+            loader.loaders.reverse()
+        cfg, lc, tc = favae_f32_configs(batch * world)
+    tr = FavaeTrainer(cfg, lc, tc, str(ROOT / "output" / job["name"]),
+                      device=device, mesh=mesh)
+    tr.fit(loader, None)
+    return {"lr": tr.lr, "history": tr.history, "val": tr.val}
+
+
+def favae_single_steps(job):
+    """One FA-VAE train step without D and one with it, each from the
+    seeded initial state, on one global batch of `job["world"]` x
+    `job["batch"]` images at `job["res"]` px in `job["dtype"]`, under
+    deterministic algorithms: this rank's rows under a process group, the
+    whole batch without one. The metrics of each, and the model after
+    each in `save_model` + the gate (f32, rank 0)."""
+    import torch
+    from favae_tpu_torch.data.pipeline import SyntheticDataset
+    from favae_tpu_torch.parallel.mesh import is_main_process, start_rank
+    from favae_tpu_torch.train.favae_trainer import FavaeTrainer
+    world, batch = job["world"], job["batch"]
+    device, mesh = start_rank(job["device"], job.get("backend"))
+    ds = SyntheticDataset(job["res"], size=world * batch, seed=6)
+    x = np.stack([ds.get(i) for i in range(world * batch)])
+    if mesh is not None:
+        x = x[mesh.dp.rank * batch:(mesh.dp.rank + 1) * batch]
+    cfg, lc, tc = favae_f32_configs(batch if mesh else batch * world,
+                                    job["dtype"])
+    out = []
+    zero_counts()
+    set_deterministic(True)
+    try:
+        for disc_on in (False, True):
+            tr = FavaeTrainer(cfg, lc, tc, str(ROOT / "output" / job["name"]),
+                              device=device, mesh=mesh)
+            tr.state, m = tr._steps[(disc_on, True)](
+                tr.state, torch.from_numpy(x).to(device))
+            out.append({k: float(v) for k, v in m.items() if v.dim() == 0})
+            if job.get("save_model") and is_main_process():
+                torch.save({k: v.detach().float().cpu() for k, v in
+                            tr.state.model.state_dict().items()},
+                           f"{job['save_model']}.{int(disc_on)}")
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        set_deterministic(False)
+    from favae_tpu_torch.graphs import launch_counts
+    world_now = mesh.world if mesh is not None else 1
+    return {"kind": job["kind"], "name": job["name"], "metrics": out,
+            "lr": tc.base_lr * tc.batch_size * world_now,
+            "launches": {k: v for c in launch_counts() for k, v in c.items()}}
+
+
+def rank_main(spec_path):
+    """The body of a rank under torch.distributed.run: its jobs in order,
+    each rank's results saved beside the spec."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    if spec.get("probe"):  # two ranks of one NCCL communicator on one card
+        from favae_tpu_torch.parallel.mesh import start_rank
+        start_rank(spec["device"], spec["backend"])
+        t = torch.ones(4, device=spec["device"])
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        print(f"rank {dist.get_rank()}: all_reduce gave {t.tolist()}",
+              flush=True)
+        dist.destroy_process_group()
+        return 0
+    results = [favae_single_steps(job) if job["kind"] == "favae_single"
+               else run_dist_job(job) for job in spec["jobs"]]
+    torch.save(results, f"{spec['out']}.rank{os.environ['RANK']}.pt")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def torchrun_start(nproc, spec, name):
+    """Start `python -m torch.distributed.run --nproc_per_node nproc
+    chip_smoke.py --rank-jobs spec` in a process group of its own."""
+    import os
+    import socket
+    out_dir = ROOT / "output" / "chip_smoke_dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    spec = {**spec, "out": str(out_dir / name)}
+    spec_path = out_dir / f"{name}.json"
+    spec_path.write_text(json.dumps(spec))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(nproc), "--master_addr", "127.0.0.1", "--master_port",
+           str(port), str(ROOT / "chip_smoke.py"), "--rank-jobs",
+           str(spec_path)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "2",
+                                 "PYTHONPATH": str(ROOT)})
+    return {"proc": proc, "nproc": nproc, "spec": spec, "name": name,
+            "t0": time.perf_counter()}
+
+
+def torchrun_wait(run, timeout=DIST_TIMEOUT_S, expect_ok=True):
+    """Wait for a `torchrun_start` launch, killing its process group at
+    `timeout`: (rc, output). A rank that dies, hangs or exits non-zero
+    makes torchrun exit non-zero, which fails the phase unless
+    `expect_ok` is false."""
+    import os
+    import signal
+    proc, name = run["proc"], run["name"]
+    try:
+        output, _ = proc.communicate(
+            timeout=max(1.0, timeout - (time.perf_counter() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        output, _ = proc.communicate()
+        raise AssertionError(f"torchrun {name}: a rank hung past {timeout} s;"
+                             f" killed\n{output[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    (ROOT / "output" / "chip_smoke_dist" / f"{name}.log").write_text(output)
+    log(f"torchrun {name}: {run['nproc']} ranks, rc {proc.returncode}, "
+        f"{time.perf_counter() - run['t0']:.1f} s")
+    if proc.returncode != 0 and expect_ok:
+        raise AssertionError(f"torchrun {name} exited {proc.returncode}\n"
+                             f"{output[-6000:]}")
+    return proc.returncode, output
+
+
+def torchrun(nproc, spec, name):
+    """A launch of `nproc` ranks, waited for: (rc, output, each rank's
+    results)."""
+    import torch
+    run = torchrun_start(nproc, spec, name)
+    rc, output = torchrun_wait(run)
+    ranks = [torch.load(f"{run['spec']['out']}.rank{r}.pt",
+                        weights_only=False) for r in range(nproc)]
+    return rc, output, ranks
+
+
+def dist_line(name, res, census=None):
+    """The printed line of a run: steady ms a step, peak GiB, bytes and host
+    seconds of collectives a train step, launches against the census."""
+    hist = res["history"]
+    ms = [h["step_ms"] for h in hist]
+    colls = res["collectives_a_step"]
+    line = {"world": res["world"], "device": res["device"], "lr": res["lr"],
+            "steps": len(hist), "step_ms": ms,
+            "steady_ms_per_step": statistics.median(ms[1:]) if len(ms) > 1
+            else None,
+            "max_memory_allocated_gib": res["max_memory_allocated_gib"],
+            "collective_calls_a_step": statistics.median(
+                c["calls"] for c in colls) if colls else 0,
+            "collective_bytes_a_step": statistics.median(
+                c["bytes"] for c in colls) if colls else 0,
+            "collective_host_s_a_step": statistics.median(
+                c["host_s"] for c in colls) if colls else 0.0,
+            "wall_s_incl_build": res["wall_s_incl_build"],
+            "launches": {k: v for k, v in res["launches"].items() if v}}
+    if census is not None:
+        line["expected_launches"] = census
+    log("dist", name, json.dumps(line))
+    return line
+
+
+def favae_census(step_launches, gn_calls, res, batch):
+    """What a rank of an FA-VAE run launches: its steps with and without D
+    and its share of the validation batches (the val rows count the
+    global images)."""
+    census = {"per_step": step_launches, "recon_gn_calls": gn_calls,
+              "init": {}}
+    val_batches = sum(v["images"] for v in res["val"]) // (
+        res["world"] * batch)
+    return expected_launches(census, res["history"], val_batches, 1, False)
+
+
+def cat_census(per_step, decode_gn, steps, val_batches, previews):
+    expect = {k: v * (steps + val_batches) for k, v in per_step.items()}
+    for k in ("gn_stats", "gn_apply"):
+        expect[k] += previews * decode_gn
+    return expect
+
+
+def held_to(name, res, expect, failed):
+    rows = {k: res["launches"].get(k, 0) for k in expect}
+    if rows != expect:
+        failed.append(f"{name} launched {rows}, its census implies {expect}")
+
+
+def loss_keys(hist):
+    return sorted({k for h in hist for k in h
+                   if k.startswith("loss") or k == "weight_d"})
+
+
+def band_errors(ours, ref):
+    """Each loss of each step: (largest relative error, whether every one
+    is within BF16_BAND relative or absolute)."""
+    worst, ok = 0.0, True
+    for a, b in zip(ours, ref):
+        for k in loss_keys([b]):
+            err = abs(a[k] - b[k])
+            rel = err / max(abs(b[k]), 1e-12)
+            worst = max(worst, rel)
+            ok &= (math.isfinite(a[k])
+                   and (rel <= BF16_BAND["rel"] or err <= BF16_BAND["abs"]))
+    return worst, ok
+
+
+def clip_vision_check(failed, b=4, seed=12):
+    """ViT-L/14 and RN50 vision towers (seeded random weights) at 224 px,
+    batch `b`, f32 with TF32 off on the card against the CPU: error
+    relative to the largest feature."""
+    import torch
+    from favae_tpu_torch.config import CLIPResNetConfig, CLIPVisionConfig
+    from favae_tpu_torch.models.clip_vision import (CLIPModifiedResNet,
+                                                    CLIPVisionTransformer)
+    x = torch.from_numpy(np.random.RandomState(seed).randn(
+        b, 224, 224, 3).astype(np.float32))
+    out = {}
+    for name, make in (("vit-l-14", lambda: CLIPVisionTransformer(
+            CLIPVisionConfig())), ("rn50", lambda: CLIPModifiedResNet(
+                CLIPResNetConfig()))):
+        torch.manual_seed(seed)
+        model = make().eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = model(x)
+            ref = ref[0] if isinstance(ref, tuple) else ref
+            cpu_s = time.perf_counter() - t0
+            model.cuda()
+            t0 = time.perf_counter()
+            got = model(x.cuda())
+            got = (got[0] if isinstance(got, tuple) else got).cpu()
+            card_s = time.perf_counter() - t0
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        out[name] = {"shape": list(got.shape), "rel_err": err,
+                     "cpu_s": cpu_s, "card_s_first_call": card_s}
+        del model
+    log("clip-vision-cross-check", json.dumps(out))
+    if not all(v["rel_err"] <= CLIP_VISION_XCHECK for v in out.values()):
+        failed.append(f"CLIP vision towers out of bounds {CLIP_VISION_XCHECK}")
+    return out
+
+
+def two_rank_jobs(tag, device, backend):
+    """The jobs of (c) and (d) for two ranks on `device` over `backend`."""
+    out = ROOT / "output" / "chip_smoke_dist"
+    flags = ["--dist_backend", backend, "--device", device]
+    cat_f32 = ["--ds", f"chip_smoke_dist_d32{tag}", *CAT_DIST_ARGS]
+    cat_full = ["--ds", f"chip_smoke_dist_d{tag}", "--save_every_epoch", "0",
+                *CAT_DIST_ARGS]
+    single = dict(kind="favae_single", world=2, device=device,
+                  backend=backend)
+    return [
+        {**single, "name": f"c1_f32{tag}", "batch": 2, "res": 64,
+         "dtype": "float32", "save_model": str(out / f"c1_f32{tag}")},
+        {**single, "name": f"c1_bf16{tag}", "batch": 8, "res": 256,
+         "dtype": "bfloat16"},
+        {"kind": "favae_f32", "name": f"c_f32{tag}", "world": 2, "batch": 2,
+         "device": device, "backend": backend, "deterministic": True},
+        {"kind": "favae_cli", "name": f"c_bf16{tag}", "batch": 8, "argv": [
+            "--ds", f"chip_smoke_dist_c{tag}", "--preset", "celebahq_expe5",
+            "--batch_size", "8", *FAVAE_DIST_ARGS, *flags]},
+        {"kind": "cat_cli", "name": f"d_f32{tag}", "layers": 2, "gather": True,
+         "argv": cat_f32 + ["--batch_size", "8", "--tp", "2", *flags]},
+        {"kind": "cat_cli", "name": f"d_bf16{tag}", "previews": False,
+         "argv": cat_full + ["--batch_size", "8", "--tp", "2", *flags]}]
+
+
+def single_step_errors(job, ours, ref):
+    """(c)'s single steps against one process: each gate's losses, and in
+    f32 the model (TRAIN_XCHECK); in bf16 the losses (BF16_BAND)."""
+    import torch
+    if job["dtype"] != "float32":
+        worst, ok = band_errors(ours["metrics"], ref["metrics"])
+        return {"loss_max_rel_err": worst}, ok
+    res, ok, lim = {}, True, TRAIN_XCHECK
+    for gate, (a, b) in enumerate(zip(ours["metrics"], ref["metrics"])):
+        keys = loss_keys([b])
+        rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in keys)
+        err = state_errors(
+            torch.load(f"{ref['save_model']}.{gate}", weights_only=True),
+            torch.load(f"{job['save_model']}.{gate}", weights_only=True),
+            ref["lr"])
+        res[f"disc_{'on' if gate else 'off'}"] = {"loss_max_rel_err": rel,
+                                                  **err}
+        ok &= (rel <= lim["loss_rel"]
+               and err["state_max_rel_err"] <= lim["state_rel"]
+               and err["param_max_err_lr"] <= lim["param_max_lr"]
+               and err["param_mean_err_lr"] <= lim["param_mean_lr"])
+    return res, ok
+
+
+def multi_step_errors(ours, ref):
+    """The largest relative loss difference over a run's steps."""
+    keys = loss_keys(ref["history"])
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+               for a, b in zip(ours["history"], ref["history"])
+               for k in keys if k in b)
+
+
+def check_two_ranks(ranks, jobs, census, refs, failed):
+    """Each job of a two-rank launch against its one-process reference.
+    Held: (c)'s single steps (f32 within TRAIN_XCHECK, bf16 within
+    BF16_BAND); every 4-step run's launches against its census on both
+    ranks and the ranks' states (dp: the whole state; tp: the replicated
+    part) equal bit for bit; (d)'s runs (f32 within CAT_XCHECK, its
+    checkpoint resumed at tp=1 equal to the gathered state; bf16 within
+    BF16_BAND). Printed, not held: how far (c)'s 4-step runs drift from
+    one process, beside the drift of one process from itself with the
+    rows of each batch permuted (the GAN amplifies summation-order
+    differences, as the default-algorithm resume check shows). Failures
+    go to `failed`."""
+    out = {}
+    for j, job in enumerate(jobs):
+        r0, r1 = ranks[0][j], ranks[1][j]
+        name = job["name"]
+        ref = refs[name.split("-")[0]]
+        if job["kind"] == "favae_single":
+            res, ok = single_step_errors(job, r0, ref)
+            res["ranks_metrics_equal"] = r0["metrics"] == r1["metrics"]
+            ok &= res["ranks_metrics_equal"]
+        else:
+            expect = census(job, r0)
+            lines = [dist_line(f"({name}) rank {r}", rr, expect)
+                     for r, rr in enumerate((r0, r1))]
+            for rr in (r0, r1):
+                held_to(f"({name})", rr, expect, failed)
+            key = ("replicated_digest" if job["kind"] == "cat_cli"
+                   else "state_digest")
+            res = {"ranks": lines, f"{key}_equal": r0[key] == r1[key]}
+            ok = res[f"{key}_equal"]
+            if job.get("layers"):
+                rel = max(abs(a["loss_gpt"] - b["loss_gpt"]) / b["loss_gpt"]
+                          for a, b in zip(r0["history"], ref["history"]))
+                res.update(loss_max_rel_err=rel, **ref["resume"](r0, job))
+                ok &= (rel <= CAT_XCHECK["loss_rel"]
+                       and res["resumed_at_tp1_epoch"] == 1
+                       and res["resumed_equals_gathered_bit_for_bit"])
+            elif job["kind"] == "cat_cli":
+                worst, within = band_errors(r0["history"], ref["history"])
+                res["loss_max_rel_err"] = worst
+                ok &= within
+            else:  # (c)'s 4-step runs: printed
+                res["drift_loss_max_rel"] = multi_step_errors(r0, ref)
+                if "perm" in ref:
+                    res["one_process_permuted_drift_loss_max_rel"] = \
+                        multi_step_errors(ref["perm"], ref)
+        res["held_within_bounds"] = ok
+        log(f"dist ({name}) vs one process", json.dumps(
+            {k: v for k, v in res.items() if k != "ranks"}))
+        if not ok:
+            failed.append(f"({name}) against one process: "
+                          f"{ {k: v for k, v in res.items() if k != 'ranks'} }")
+        out[name] = res
+    return out
+
+
+def distribution(step_launches, gn_calls, cat_per_step, decode_gn):
+    """Phase 10: the trainers under torch.distributed.run.
+
+    (a) + (b): world 1 over NCCL through `cli.train_favae` (expe5, B=16,
+    256 px, bf16, 2 steps without D and 2 with) and `cli.train_cat`
+    (cat_celebahq, B=16, full pipeline, 4 steps, dropout 0), under
+    deterministic algorithms, held bit for bit (losses and a digest of the
+    whole state) against the same runs in this process with no group.
+    (c) + (d): two ranks on the one card over gloo: the FA-VAE trainer at
+    f32 64 px, 2 images a rank, against this process at 4 on the same
+    global batches (TRAIN_XCHECK, both deterministic); `cli.train_favae`
+    at bf16 256 px, 8 a rank, against (a)'s one-process run on the same
+    samples (BF16_BAND); `cli.train_cat --tp 2` at 8 a rank (a dp group of
+    16) with the GPT at 2 layers in f32 against `--tp 1` at 16
+    (CAT_XCHECK), validating and previewing through the split blocks and
+    saving, its checkpoint resumed here at tp=1 and held bit for bit to
+    the gathered state; then at full depth against (b)'s one-process run
+    (BF16_BAND; validation without a preview). Every rank's launches equal
+    its run's census; dp ranks end with one state and tp ranks with one
+    replicated part, bit for bit. (e): (c) and (d) again over NCCL with
+    one card a rank where the machine has two; NCCL's answer to two ranks
+    on one card. Then the CLIP vision towers. Every check is logged before
+    the first failure is raised."""
+    import torch
+    from favae_tpu_torch.train.cat_trainer import CATTrainer
+    out, failed, launches0 = {}, [], {}
+
+    def add_launches(res):
+        for k, v in res["launches"].items():
+            launches0[k] = launches0.get(k, 0) + v
+
+    def census(job, res):
+        if job["kind"] == "cat_cli":
+            return cat_census(cat_per_step, decode_gn, CAT_DIST_STEPS,
+                              CAT_VAL_BATCHES, job.get("previews", True))
+        return favae_census(step_launches, gn_calls, res, job["batch"])
+
+    # (a), (b): world 1 over NCCL, then the same runs here without a group
+    favae_argv = ["--ds", "chip_smoke_dist_a", "--preset", "celebahq_expe5",
+                  "--batch_size", "16", *FAVAE_DIST_ARGS]
+    cat_argv = ["--ds", "chip_smoke_dist_b", "--batch_size", "16",
+                "--save_every_epoch", "0", *CAT_DIST_ARGS]
+    jobs_a = [{"kind": "favae_cli", "name": "a", "argv": favae_argv,
+               "batch": 16, "deterministic": True},
+              {"kind": "cat_cli", "name": "b", "argv": cat_argv,
+               "deterministic": True, "previews": False}]
+    _, _, ranks = torchrun(1, {"jobs": jobs_a}, "world1_nccl")
+    refs = {}
+    for res, job in zip(ranks[0], jobs_a):
+        add_launches(res)
+        name = job["name"]
+        ref = refs[name] = run_dist_job(job)
+        expect = census(job, res)
+        out[name] = dist_line(f"({name}) world 1 nccl", res, expect)
+        dist_line(f"({name}) one process", ref)
+        held_to(f"({name})", res, expect, failed)
+        keys = loss_keys(ref["history"])
+        same = (all(a[k] == b[k] for a, b in zip(res["history"],
+                                                  ref["history"])
+                    for k in keys)
+                and res["state_digest"] == ref["state_digest"])
+        log(f"dist ({name}) bits", json.dumps({
+            "losses_and_state_bit_for_bit": same,
+            "steps": len(res["history"]), "loss_keys": keys}))
+        if not same:
+            failed.append(f"({name}): world 1 under NCCL differs from the "
+                          "run without a group")
+    del ranks
+    torch.cuda.empty_cache()
+
+    # NCCL's answer to two ranks on one card, while this process runs the
+    # one-process references of (c) and (d)
+    probe = torchrun_start(2, {"probe": True, "device": "cuda:0",
+                               "backend": "nccl"}, "nccl_one_card")
+    try:
+        ref_dir = ROOT / "output" / "chip_smoke_dist"
+        ref_dir.mkdir(parents=True, exist_ok=True)
+        for job in two_rank_jobs("", "cuda", "gloo")[:2]:
+            ref = {**job, "name": job["name"] + "_ref"}
+            if "save_model" in ref:
+                ref["save_model"] += "_ref"
+            refs[job["name"]] = {**favae_single_steps(ref),
+                                 "save_model": ref.get("save_model")}
+        c4 = {"kind": "favae_f32", "name": "c_f32_ref", "world": 2, "batch": 2,
+              "device": "cuda", "deterministic": True}
+        refs["c_f32"] = run_dist_job(c4)
+        refs["c_f32"]["perm"] = run_dist_job({**c4, "name": "c_f32_perm",
+                                              "reverse_shards": True})
+        refs["c_bf16"], refs["d_bf16"] = refs["a"], refs["b"]
+        argv = ["--ds", "chip_smoke_dist_d32_ref", "--batch_size", "16",
+                "--save_every_epoch", "0", *CAT_DIST_ARGS]
+        refs["d_f32"] = run_dist_job({"kind": "cat_cli", "name": "d_f32_ref",
+                                      "argv": argv, "layers": 2})
+
+        def resume_at_tp1(res, job):
+            """The tp=2 run's checkpoint resumed by one process at tp=1."""
+            cfg = cat_layers_cfg(argv, 2)
+            undo = f32_gpt_build(2)
+            try:
+                from favae_tpu_torch.models import txt_cond
+                from favae_tpu_torch.models.clip_text import BPETokenizer
+                cat = txt_cond.build_cat(cfg, "cuda", tokenizer=BPETokenizer(
+                    merges=["s y", "sy n", "syn t"]))
+            finally:
+                undo()
+            run_dir = ROOT / "output" / "cat" / job["argv"][1]
+            tr = CATTrainer(cfg, str(run_dir), steps_per_epoch=CAT_DIST_STEPS,
+                            batch_size=16, device="cuda", cat=cat)
+            tr.resume()
+            got = {"resumed_at_tp1_epoch": tr.start_epoch,
+                   "resumed_equals_gathered_bit_for_bit":
+                       tensor_digest(tr.state_dict()) == res["gathered_digest"]}
+            del tr, cat
+            shutil.rmtree(run_dir, ignore_errors=True)
+            torch.cuda.empty_cache()
+            return got
+        refs["d_f32"]["resume"] = resume_at_tp1
+    finally:
+        rc, text = torchrun_wait(probe, timeout=180, expect_ok=False)
+    answer = [ln for ln in text.splitlines()
+              if "ncclInvalidUsage" in ln or "Duplicate GPU" in ln
+              or "all_reduce gave" in ln or "Error" in ln][:6]
+    log("dist nccl two ranks on one card", json.dumps(
+        {"rc": rc, "answer": answer}))
+    out["nccl_two_ranks_one_card"] = {"rc": rc, "answer": answer}
+    torch.cuda.empty_cache()
+
+    # (c), (d): two ranks on one card over gloo
+    jobs = two_rank_jobs("", "cuda:0", "gloo")
+    for job in jobs:
+        if job["kind"] == "cat_cli":
+            shutil.rmtree(ROOT / "output" / "cat" / job["argv"][1],
+                          ignore_errors=True)
+    _, _, ranks = torchrun(2, {"jobs": jobs}, "two_ranks_gloo")
+    for res in ranks[0]:
+        add_launches(res)
+    out.update(check_two_ranks(ranks, jobs, census, refs, failed))
+    del ranks
+
+    # (e): NCCL, one card a rank, where there are two cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        jobs = two_rank_jobs("-nccl", "cuda", "nccl")
+        for job in jobs:
+            if job["kind"] == "cat_cli":
+                shutil.rmtree(ROOT / "output" / "cat" / job["argv"][1],
+                              ignore_errors=True)
+        _, _, ranks = torchrun(2, {"jobs": jobs}, "two_cards_nccl")
+        out.update(check_two_ranks(ranks, jobs, census, refs, failed))
+        del ranks
+    else:
+        log(f"dist (e) not run: NCCL with one card a rank needs two cards, "
+            f"this machine has {n_cards}; not counted as a pass")
+
+    out["clip_vision"] = clip_vision_check(failed)
+    out["launches_rank0"] = launches0
+    if failed:
+        raise AssertionError("phase 10: " + "; ".join(map(str, failed)))
+    return out
+
+
 def main():
     smi = nvidia_smi()
     log(smi)
@@ -2785,6 +3564,15 @@ def main():
     phase_s["9_presets_and_options"] = time.perf_counter() - t_phase
     log("phase 9 seconds", json.dumps(
         {"s": phase_s["9_presets_and_options"], "launches": launches9}))
+
+    # phase 10: distribution, and the CLIP vision towers
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist10 = distribution(step_launches, gn_calls, cat_step_launches,
+                          serve_runs["exact"]["launches"]["gn_stats"])
+    phase_s["10_distribution"] = time.perf_counter() - t_phase
+    log("phase 10 seconds", json.dumps({"s": phase_s["10_distribution"]}))
     log("phase_seconds", json.dumps(phase_s))
 
     # the whole GroupNorm (stats + fold + apply) beside one-call PyTorch
@@ -2802,6 +3590,7 @@ def main():
         + int8_kernel_rows(int8_checks, serve_launches)
         + phase9_kernel_rows(vq9, gn9, bwd9, launches9),
         "group_norm_act_per_batch": gn_total,
+        "phase10_launches_rank0": dist10["launches_rank0"],
         "group_norm_act_backward_per_train_step": bwd_total}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -2811,4 +3600,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-jobs"]:  # a rank started by phase 10
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

@@ -20,11 +20,23 @@ the GPT, its AdamW moments, the step and the dropout generator.
 TensorBoard scalars and sample previews (every `--img_steps` global steps
 and after each validation) go to `<output_dir>/cat/<ds>/runs`. `--resume`
 continues from `latest`; `--resume_path` names a checkpoint directory or
-a reference-format `.pt` (GPT weights only, fresh AdamW). `--tp` above 1
-is not yet ported and raises. `--gpt_unroll` and `--dropout_rng` are
-accepted and ignored: the port has no layer scan and draws from one
-`torch.Generator`. `main` returns the run's per-step and validation
-metrics.
+a reference-format `.pt` (GPT weights only, fresh AdamW). `--gpt_unroll`
+and `--dropout_rng` are accepted and ignored: the port has no layer scan
+and draws from one `torch.Generator`. `main` returns the run's per-step
+and validation metrics.
+
+Over N processes the ranks form a (N / tp, tp) grid (`--tp`, tensor
+parallelism of the GPT): `--batch_size` samples a rank, so a dp group
+loads batch_size * tp samples a step and the global batch is
+batch_size * N, as the JAX CLI's batch per device; lr = base_lr *
+batch_size * N. Each rank runs on `cuda:LOCAL_RANK`:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m favae_tpu_torch.cli.train_cat --ds cat_run --tp 2 ...
+
+`--dist_backend` picks nccl (the default on CUDA) or gloo (the default on
+the CPU, and the one that runs several ranks on one card named by
+`--device cuda:0`).
 """
 
 from __future__ import annotations
@@ -33,10 +45,6 @@ import argparse
 import dataclasses
 import json
 import os
-
-# flags that are not yet ported, with the value that leaves them off
-_NOT_PORTED = {"tp": 1}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train CAT (PyTorch/CUDA)")
@@ -80,7 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the frozen FA-VAE and CLIP encodes once before "
                         "training and train the GPT from the cache (~237 KB "
                         "of host memory a sample with ViT-L/14)")
-    p.add_argument("--save_every_epoch", type=int, default=1)
+    p.add_argument("--save_every_epoch", type=int, default=1,
+                   help="checkpoint every Nth epoch and the last; 0 writes "
+                        "none (port only)")
     p.add_argument("--favae_ckpt", type=str, default=None,
                    help="reference-format FA-VAE checkpoint (.pt); random "
                         "first stage without")
@@ -110,7 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "Default: <output_dir>/cat/<ds>/latest (reference: "
                         "train_cat.py:199-204)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism: only 1 is ported (one card)")
+                   help="tensor parallelism of the GPT over this many ranks "
+                        "of a torchrun launch (it must divide the world, "
+                        "the heads and the FF width)")
     p.add_argument("--train_file", type=str, default=None)
     p.add_argument("--val_file", type=str, default=None)
     p.add_argument("--use_cosine_sim", action="store_true")
@@ -137,7 +149,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch.profiler over steps [2, 5) of the first "
                         "epoch; summary and trace in the run directory")
     p.add_argument("--output_dir", type=str, default="output")
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (each rank of a torchrun launch on "
+                        "cuda:LOCAL_RANK), cuda:N (every rank on card N) "
+                        "or cpu")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process group backend under torchrun (default "
+                        "nccl on CUDA, gloo on the CPU)")
     return p
 
 
@@ -193,29 +212,27 @@ def main(argv=None, cfg=None):
     "profile" (or None), "summary" (`run_summary`, also printed)}. `cfg`
     replaces the CATConfig that the flags resolve to."""
     args = build_parser().parse_args(argv)
-    for flag, off in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} is not yet ported to favae_tpu_torch")
     import torch
 
-    from favae_tpu_torch import resolve_device
     from favae_tpu_torch.convert import (load_reference_checkpoint,
                                          load_reference_clip_text)
     from favae_tpu_torch.data.pipeline import (DataLoader, PklImageDataset,
                                                SyntheticDataset)
     from favae_tpu_torch.models.clip_text import BPETokenizer
     from favae_tpu_torch.models.txt_cond import build_cat
+    from favae_tpu_torch.parallel.mesh import is_main_process, start_rank
     from favae_tpu_torch.train.cat_trainer import CATTrainer
+    from favae_tpu_torch.utils.logging import print0
 
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    device = resolve_device(args.device)
+    device, mesh = start_rank(args.device, args.dist_backend, args.tp)
     cfg = cfg or config_from_args(args)
     save_path = os.path.join(args.output_dir, "cat", args.ds)
     os.makedirs(save_path, exist_ok=True)
-    with open(os.path.join(save_path, "train_cfg.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    if is_main_process():
+        with open(os.path.join(save_path, "train_cfg.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
     if args.bpe_vocab:
         tokenizer = BPETokenizer(args.bpe_vocab)
@@ -224,25 +241,30 @@ def main(argv=None, cfg=None):
     cat = build_cat(cfg, device, seed=args.seed, tokenizer=tokenizer)
     if args.favae_ckpt:
         load_reference_checkpoint(cat.favae, args.favae_ckpt)
-        print(f"loaded FA-VAE first stage from {args.favae_ckpt}", flush=True)
+        print0(f"loaded FA-VAE first stage from {args.favae_ckpt}")
     if args.clip_ckpt:
         load_reference_clip_text(cat.clip, args.clip_ckpt)
-        print(f"loaded CLIP text tower from {args.clip_ckpt}", flush=True)
+        print0(f"loaded CLIP text tower from {args.clip_ckpt}")
 
     res, batch = cfg.vqgan.codec.resolution, args.batch_size
+    world = mesh.world if mesh is not None else 1
+    # a dp group's tp ranks share batch * tp samples a step
+    group_batch = batch * args.tp
+    shard = (dict(shard_index=mesh.dp.rank, shard_count=mesh.dp.size)
+             if mesh is not None else {})
     if args.synthetic_data or args.train_file is None:
-        train_ds = SyntheticDataset(res, size=args.synthetic_steps * batch,
-                                    with_captions=True)
-        val_ds = SyntheticDataset(res, size=4 * batch, seed=7,
+        train_ds = SyntheticDataset(res, size=args.synthetic_steps * batch
+                                    * world, with_captions=True)
+        val_ds = SyntheticDataset(res, size=4 * batch * world, seed=7,
                                   with_captions=True)
     else:
         train_ds = PklImageDataset(args.train_file, res, with_captions=True)
         val_ds = (PklImageDataset(args.val_file, res, with_captions=True)
                   if args.val_file else None)
-    train_dl = DataLoader(train_ds, batch, num_workers=args.num_workers,
-                          shuffle=True, seed=args.seed)
-    val_dl = (DataLoader(val_ds, batch, num_workers=args.num_workers)
-              if val_ds else None)
+    train_dl = DataLoader(train_ds, group_batch, num_workers=args.num_workers,
+                          shuffle=True, seed=args.seed, **shard)
+    val_dl = (DataLoader(val_ds, group_batch, num_workers=args.num_workers,
+                         **shard) if val_ds else None)
 
     trainer = CATTrainer(cfg, save_path, steps_per_epoch=len(train_dl),
                          batch_size=batch, device=device,
@@ -251,16 +273,17 @@ def main(argv=None, cfg=None):
                          cache_latents=args.cache_latents, cat=cat,
                          log_dir=os.path.join(save_path, "runs"),
                          save_every_epoch=args.save_every_epoch,
-                         enable_profiler=args.profile)
+                         enable_profiler=args.profile, mesh=mesh)
     if args.resume or args.resume_path:
         trainer.resume(args.resume_path)
-    print(f"device={device} lr={trainer.lr:.3e} batch={batch} "
-          f"grad_accum={args.grad_accum} steps/epoch={len(train_dl)} "
-          f"cache_latents={args.cache_latents}", flush=True)
+    print0(f"device={device} world={world} tp={args.tp} lr={trainer.lr:.3e} "
+           f"batch={batch} global_batch={batch * world} "
+           f"grad_accum={args.grad_accum} steps/epoch={len(train_dl)} "
+           f"cache_latents={args.cache_latents}")
     trainer.fit(train_dl, val_dl, print_steps=args.print_steps,
                 img_steps=args.img_steps)
-    summary = run_summary(trainer.history, batch, device)
-    print("summary " + json.dumps(summary), flush=True)
+    summary = run_summary(trainer.history, batch * world, device)
+    print0("summary " + json.dumps(summary))
     return {"lr": trainer.lr, "start_epoch": trainer.start_epoch,
             "history": trainer.history, "val": trainer.val,
             "precompute_s": trainer.precompute_s, "profile": trainer.profile,

@@ -18,6 +18,17 @@ epoch 0). `--loader_uint8` ships uint8 batches that the step normalises
 on the card; `--loader_processes` decodes in worker processes. With
 `--preset`, the model and loss flags are ignored, as in the JAX CLI.
 `main` returns the run's per-step and validation metrics.
+
+Data parallel over N processes, each on `cuda:LOCAL_RANK` (`--batch_size`
+images a rank, lr = base_lr * batch * N, as the JAX CLI's batch per
+device):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m favae_tpu_torch.cli.train_favae --ds myrun ...
+
+`--dist_backend` picks nccl (the default on CUDA) or gloo (the default on
+the CPU, and the one that runs several ranks on one card named by
+`--device cuda:0`).
 """
 
 from __future__ import annotations
@@ -35,7 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ffhq_table1, imagenet_f16, imagenet_f4)")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--downsample_factor", type=int, default=16)
-    p.add_argument("--save_every_epoch", type=int, default=1)
+    p.add_argument("--save_every_epoch", type=int, default=1,
+                   help="checkpoint every Nth epoch and the last; 0 writes "
+                        "none (port only)")
     p.add_argument("--perceptual_weight", type=float, default=1.0)
     p.add_argument("--disc_weight", type=float, default=0.75)
     p.add_argument("--codebook_weight", type=float, default=1.0)
@@ -112,7 +125,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch.profiler over steps [2, 5) of the first "
                         "epoch; summary and trace in the run directory")
     p.add_argument("--output_dir", type=str, default="output")
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (each rank of a torchrun launch on "
+                        "cuda:LOCAL_RANK), cuda:N (every rank on card N) "
+                        "or cpu")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process group backend under torchrun (default "
+                        "nccl on CUDA, gloo on the CPU)")
     return p
 
 
@@ -206,24 +226,32 @@ def main(argv=None):
     from favae_tpu_torch.convert import read_lpips_checkpoint
     from favae_tpu_torch.data.pipeline import (DataLoader, PklImageDataset,
                                                SyntheticDataset)
+    from favae_tpu_torch.parallel.mesh import is_main_process, start_rank
     from favae_tpu_torch.train.favae_trainer import FavaeTrainer
+    from favae_tpu_torch.utils.logging import print0
 
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    device, mesh = start_rank(args.device, args.dist_backend)
     model_cfg, loss_cfg, train_cfg = config_from_args(args)
     save_path = os.path.join(args.output_dir, args.ds)
     os.makedirs(save_path, exist_ok=True)
-    with open(os.path.join(save_path, "train_cfg.json"), "w") as f:
-        json.dump({"model": dataclasses.asdict(model_cfg),
-                   "loss": dataclasses.asdict(loss_cfg),
-                   "train": dataclasses.asdict(train_cfg)}, f, indent=2,
-                  default=str)
+    if is_main_process():
+        with open(os.path.join(save_path, "train_cfg.json"), "w") as f:
+            json.dump({"model": dataclasses.asdict(model_cfg),
+                       "loss": dataclasses.asdict(loss_cfg),
+                       "train": dataclasses.asdict(train_cfg)}, f, indent=2,
+                      default=str)
 
     res = args.resolution or model_cfg.codec.resolution
     batch = train_cfg.batch_size
+    world = mesh.world if mesh is not None else 1
+    shard = (dict(shard_index=mesh.dp.rank, shard_count=mesh.dp.size)
+             if mesh is not None else {})
     if args.synthetic_data or args.train_file is None:
-        train_ds = SyntheticDataset(res, size=args.synthetic_steps * batch)
-        val_ds = SyntheticDataset(res, size=4 * batch, seed=7)
+        train_ds = SyntheticDataset(res, size=args.synthetic_steps * batch
+                                    * world)
+        val_ds = SyntheticDataset(res, size=4 * batch * world, seed=7)
     else:
         dtype = "uint8" if args.loader_uint8 else "float32"
         train_ds = PklImageDataset(args.train_file, res, output_dtype=dtype)
@@ -231,21 +259,22 @@ def main(argv=None):
                   if args.test_file else None)
     train_dl = DataLoader(train_ds, batch, num_workers=args.num_workers,
                           shuffle=True, seed=train_cfg.seed,
-                          use_processes=args.loader_processes)
+                          use_processes=args.loader_processes, **shard)
     val_dl = (DataLoader(val_ds, batch, num_workers=args.num_workers,
-                         use_processes=args.loader_processes)
+                         use_processes=args.loader_processes, **shard)
               if val_ds else None)
 
     lpips_sd = (read_lpips_checkpoint(args.lpips_ckpt) if args.lpips_ckpt
                 else None)
     trainer = FavaeTrainer(model_cfg, loss_cfg, train_cfg, save_path,
-                           device=args.device, lpips_state_dict=lpips_sd,
+                           device=device, lpips_state_dict=lpips_sd,
                            log_dir=os.path.join(save_path, "runs"),
-                           enable_profiler=args.profile)
+                           enable_profiler=args.profile, mesh=mesh)
     if args.resume or args.resume_path:
         trainer.resume(args.resume_path)
-    print(f"device={trainer.device} lr={trainer.lr:.3e} batch={batch} "
-          f"steps/epoch={len(train_dl)}", flush=True)
+    print0(f"device={trainer.device} world={world} lr={trainer.lr:.3e} "
+           f"batch={batch} global_batch={batch * world} "
+           f"steps/epoch={len(train_dl)}")
     try:
         trainer.fit(train_dl, val_dl)
     finally:

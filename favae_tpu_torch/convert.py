@@ -12,6 +12,9 @@ these sources load:
 * `lpips_from_jax`: the JAX LPIPS tree -> the port's LPIPS state_dict.
 * `load_reference_checkpoint`: a reference-format `.pt`, discriminator
   included, loaded strictly.
+* `clip_vision_from_jax` / `clip_resnet_from_jax` and
+  `load_reference_clip_vision` / `load_reference_clip_resnet`: the CLIP
+  vision towers from the JAX package's trees or OpenAI CLIP's state_dict.
 """
 
 from __future__ import annotations
@@ -283,16 +286,7 @@ def clip_text_from_jax(params) -> Dict[str, torch.Tensor]:
         "text_projection": np.asarray(params["text_projection"]),
     }
     _put(sd, "ln_final", _norm(params["ln_final"]))
-    i = 0
-    while f"resblock_{i}" in params:
-        p, pre = params[f"resblock_{i}"], f"transformer.resblocks.{i}"
-        _put(sd, f"{pre}.ln_1", _norm(p["ln_1"]))
-        _put(sd, f"{pre}.attn", _packed_qkv(p))
-        _put(sd, f"{pre}.attn.out_proj", _linear(p["attn_out"]))
-        _put(sd, f"{pre}.ln_2", _norm(p["ln_2"]))
-        _put(sd, f"{pre}.mlp.c_fc", _linear(p["c_fc"]))
-        _put(sd, f"{pre}.mlp.c_proj", _linear(p["c_proj"]))
-        i += 1
+    _clip_blocks(sd, params)
     return _tensors(sd)
 
 
@@ -330,3 +324,98 @@ def load_reference_clip_text(clip: torch.nn.Module, path_or_sd) -> None:
     text = {k: v.float() for k, v in sd.items()
             if k in own or k.startswith(("transformer.", "ln_final."))}
     clip.load_state_dict(text, strict=True)
+
+
+def _clip_blocks(sd: Dict[str, np.ndarray], params) -> None:
+    i = 0
+    while f"resblock_{i}" in params:
+        p, pre = params[f"resblock_{i}"], f"transformer.resblocks.{i}"
+        _put(sd, f"{pre}.ln_1", _norm(p["ln_1"]))
+        _put(sd, f"{pre}.attn", _packed_qkv(p))
+        _put(sd, f"{pre}.attn.out_proj", _linear(p["attn_out"]))
+        _put(sd, f"{pre}.ln_2", _norm(p["ln_2"]))
+        _put(sd, f"{pre}.mlp.c_fc", _linear(p["c_fc"]))
+        _put(sd, f"{pre}.mlp.c_proj", _linear(p["c_proj"]))
+        i += 1
+
+
+def clip_vision_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The flax CLIPVisionTransformer tree -> the port's state_dict, OpenAI
+    CLIP's `visual.` layout without the prefix
+    (favae_tpu/utils/torch_convert.py:319-350, inverted)."""
+    sd: Dict[str, np.ndarray] = {
+        "conv1.weight": np.asarray(params["conv1"]["kernel"]).transpose(
+            3, 2, 0, 1),
+        "class_embedding": np.asarray(params["class_embedding"]),
+        "positional_embedding": np.asarray(params["positional_embedding"]),
+        "proj": np.asarray(params["proj"]),
+    }
+    _put(sd, "ln_pre", _norm(params["ln_pre"]))
+    _put(sd, "ln_post", _norm(params["ln_post"]))
+    _clip_blocks(sd, params)
+    return _tensors(sd)
+
+
+def clip_resnet_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """The flax CLIPModifiedResNet tree and its BatchNorm statistics -> the
+    port's state_dict, OpenAI CLIP's `visual.` layout without the prefix
+    (favae_tpu/utils/torch_convert.py:353-400, inverted)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def bn(dst, p, s):
+        _put(sd, dst, {"weight": np.asarray(p["scale"]),
+                       "bias": np.asarray(p["bias"]),
+                       "running_mean": np.asarray(s["mean"]),
+                       "running_var": np.asarray(s["var"])})
+
+    for n in (1, 2, 3):
+        _put(sd, f"conv{n}", _conv(params[f"conv{n}"]))
+        bn(f"bn{n}", params[f"bn{n}"], batch_stats[f"bn{n}"])
+    for name, bp in params.items():
+        if not name.startswith("layer"):
+            continue
+        li, bi = name[len("layer"):].split("_")
+        pre, bs = f"layer{li}.{bi}", batch_stats[name]
+        for n in (1, 2, 3):
+            _put(sd, f"{pre}.conv{n}", _conv(bp[f"conv{n}"]))
+            bn(f"{pre}.bn{n}", bp[f"bn{n}"], bs[f"bn{n}"])
+        if "downsample_conv" in bp:
+            _put(sd, f"{pre}.downsample.0", _conv(bp["downsample_conv"]))
+            bn(f"{pre}.downsample.1", bp["downsample_bn"],
+               bs["downsample_bn"])
+    ap = params["attnpool"]
+    sd["attnpool.positional_embedding"] = np.asarray(
+        ap["positional_embedding"])
+    for n in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _put(sd, f"attnpool.{n}", _linear(ap[n]))
+    return _tensors(sd)
+
+
+def _reference_visual(path_or_sd) -> Dict[str, torch.Tensor]:
+    """OpenAI CLIP's state_dict (whole, or its `visual.` branch with or
+    without the prefix) -> the vision branch without the prefix, f32,
+    without BatchNorm's `num_batches_tracked` counters."""
+    sd = path_or_sd
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "model" in sd:
+        sd = sd["model"]
+    if any(k.startswith("visual.") for k in sd):
+        sd = {k[len("visual."):]: v for k, v in sd.items()
+              if k.startswith("visual.")}
+    return {k: v.float() for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def load_reference_clip_vision(vit: torch.nn.Module, path_or_sd) -> None:
+    """Load OpenAI CLIP's ViT vision branch into a port
+    CLIPVisionTransformer, strictly (favae_tpu/utils/torch_convert.py:
+    319-350)."""
+    vit.load_state_dict(_reference_visual(path_or_sd), strict=True)
+
+
+def load_reference_clip_resnet(resnet: torch.nn.Module, path_or_sd) -> None:
+    """Load OpenAI CLIP's ModifiedResNet vision branch into a port
+    CLIPModifiedResNet, strictly (favae_tpu/utils/torch_convert.py:
+    353-400)."""
+    resnet.load_state_dict(_reference_visual(path_or_sd), strict=True)

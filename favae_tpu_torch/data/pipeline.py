@@ -11,7 +11,10 @@ or, with `use_processes`, in a persistent pool of worker processes,
 optionally shuffled per epoch. `output_dtype="uint8"` ships the resized
 pixels as they are, and the train and eval steps normalise them on the
 device (`train/favae_step.py::to_unit_range`) with the reference's op
-sequence.
+sequence. `with_clip_image` adds CLIP's view of each captioned image
+(bicubic 224 x 224, CLIP's mean and std). `shard_index` / `shard_count`
+give a rank of a data-parallel run its shard of every epoch, as the JAX
+loader gives a host its shard.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ except ImportError:  # pragma: no cover
 
 MEAN = np.asarray([0.5, 0.5, 0.5], np.float32)
 STD = np.asarray([0.5, 0.5, 0.5], np.float32)
+CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
 def load_manifest(path: str) -> List:
@@ -61,14 +66,24 @@ def _transform_uint8(img, resolution: int) -> np.ndarray:
     return np.asarray(img, np.uint8)
 
 
+def _clip_transform(img) -> np.ndarray:
+    """CLIP's view: bicubic 224 x 224, CLIP's mean and std
+    (favae_tpu/data/pipeline.py:78-83)."""
+    img = img.resize((224, 224), Image.BICUBIC)
+    x = np.asarray(img, np.float32) / 255.0
+    return (x - CLIP_MEAN) / CLIP_STD
+
+
 class PklImageDataset:
     """Images of a pkl manifest (paths, or [path, caption] entries); with
-    `with_captions`, (image, caption) items of a [path, caption] one.
+    `with_captions`, (image, caption) items of a [path, caption] one, and
+    with `with_clip_image` too (image, CLIP image, caption) items.
     `output_dtype` "float32" gives pixels in [-1, 1], "uint8" the resized
-    pixels (favae_tpu/data/pipeline.py:96-113)."""
+    pixels (favae_tpu/data/pipeline.py:96-121)."""
 
     def __init__(self, manifest_path: str, resolution: int,
-                 with_captions: bool = False, output_dtype: str = "float32"):
+                 with_captions: bool = False, output_dtype: str = "float32",
+                 with_clip_image: bool = False):
         if not _HAVE_PIL:
             raise RuntimeError("PIL is required for image loading")
         if output_dtype not in ("float32", "uint8"):
@@ -77,6 +92,7 @@ class PklImageDataset:
         self.entries = load_manifest(manifest_path)
         self.resolution = resolution
         self.with_captions = with_captions
+        self.with_clip_image = with_clip_image
         self.output_dtype = output_dtype
 
     def __len__(self):
@@ -90,7 +106,11 @@ class PklImageDataset:
             if img is not None:
                 x = (_transform_uint8 if self.output_dtype == "uint8"
                      else _transform)(img, self.resolution)
-                return (x, e[1]) if self.with_captions else x
+                if not self.with_captions:
+                    return x
+                if self.with_clip_image:
+                    return x, _clip_transform(img), e[1]
+                return x, e[1]
         raise RuntimeError("no readable image in manifest")
 
 
@@ -143,13 +163,21 @@ class DataLoader:
     processes instead of threads (favae_tpu/data/pipeline.py:186-243), made
     at the first batch and kept until `close()`. They start from a
     forkserver (a forked child of a process that has initialised CUDA is
-    unusable), so the dataset must pickle."""
+    unusable), so the dataset must pickle.
+
+    `shard_index` / `shard_count` keep every `shard_count`-th sample of
+    the epoch's order from `shard_index` on, the shards of one shared
+    permutation, and `len` counts the shard's batches
+    (favae_tpu/data/pipeline.py:175-221)."""
 
     PREFETCH = 2  # batches decoded ahead of the consumer
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = True, use_processes: bool = False):
+                 drop_last: bool = True, use_processes: bool = False,
+                 shard_index: int = 0, shard_count: int = 1):
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
         self.ds = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -157,6 +185,7 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.use_processes = use_processes
+        self.shard_index, self.shard_count = shard_index, shard_count
         self.epoch = 0
         self._pool = None
 
@@ -177,9 +206,10 @@ class DataLoader:
             self._pool = None
 
     def __len__(self):
+        n = len(self.ds) // self.shard_count
         if self.drop_last:
-            return len(self.ds) // self.batch_size
-        return -(-len(self.ds) // self.batch_size)
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -188,7 +218,7 @@ class DataLoader:
         idx = np.arange(len(self.ds))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return idx
+        return idx[self.shard_index::self.shard_count]
 
     @staticmethod
     def collate(items):

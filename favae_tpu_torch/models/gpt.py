@@ -29,6 +29,17 @@ LayerNorm's gamma folded into the next projection's weight) and `remat`.
 Every random draw comes from the caller's `torch.Generator`, never from the
 global RNG: a block's masks are drawn before the block runs, so a block
 recomputed under activation checkpointing sees the same masks.
+
+Tensor parallelism (`parallel.sharding.shard_gpt_`, favae_tpu/parallel/
+sharding.py): the attention and FF modules get a tp group in `tp` and keep
+their slice of `to_q` and `fc1` (by output) and of `to_out` and `fc2` (by
+input), so each rank runs `heads / tp` heads and a `1 / tp` slice of the FF
+width; the activations enter a split region through `copy_to_tp` and leave
+it through `reduce_from_tp`. Where a replicated tensor is used only by this
+rank's slice its gradient is partial, and it too goes through `copy_to_tp`:
+the shared K/V head (with the null kv), the relative position bias table,
+a gamma folded into a split weight. The FF's LayerNorm over the split width
+sums its statistics over tp. Without a group (`tp` None) nothing changes.
 """
 
 from __future__ import annotations
@@ -44,6 +55,9 @@ import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
+from favae_tpu_torch.parallel.mesh import all_reduce_sum_grad, spans
+from favae_tpu_torch.parallel.sharding import (copy_to_tp, reduce_from_tp,
+                                               tp_slice)
 
 NEG_INF = -1e9  # large negative in place of -finfo.max (bf16-safe)
 
@@ -137,13 +151,18 @@ class RelPosBias2d(nn.Module):
             "pos_indices", torch.from_numpy(_rel_pos_indices(size)).long(),
             persistent=False)
 
-    def forward(self, i: int, j: int, row_offset: Optional[int] = None):
+    def forward(self, i: int, j: int, row_offset: Optional[int] = None,
+                tp=None):
         """Bias (heads, i, j) for a sim of shape (..., i, j); key slot 0 is
         the null kv and gets zero bias. With `row_offset` (incremental
-        decoding, i == 1) the single query row is the one at that position."""
+        decoding, i == 1) the single query row is the one at that position.
+        With a tp group, the bias of this rank's heads only."""
         rows = (self.pos_indices[:i] if row_offset is None
                 else self.pos_indices[row_offset:row_offset + 1])
-        bias = self.pos_bias(rows[:, : j - 1])          # (i, j-1, heads)
+        table = self.pos_bias.weight
+        if spans(tp):
+            table = tp_slice(copy_to_tp(table, tp), 1, tp)
+        bias = F.embedding(rows[:, : j - 1], table)     # (i, j-1, heads)
         return F.pad(bias.permute(2, 0, 1), (1, 0))
 
 
@@ -173,13 +192,30 @@ class MultiQueryAttention(nn.Module):
             self.rel_pos_bias = RelPosBias2d(rel_pos_size, heads)
         else:
             self.rel_pos_bias = None
+        self.tp = None  # the tp group, set by parallel.sharding.shard_gpt_
+
+    @property
+    def local_heads(self) -> int:
+        return self.heads // (self.tp.size if self.tp is not None else 1)
+
+    def _rel_bias(self, i: int, j: int, row_offset: Optional[int] = None):
+        if self.rel_pos_bias is None:
+            return None
+        return self.rel_pos_bias(i, j, row_offset, self.tp)[None]
+
+    def _out(self, out, dtype):
+        """to_out: the (row-split) projection summed over tp, then its
+        LayerNorm."""
+        h = reduce_from_tp(self.to_out[1](out), self.tp)
+        return self.to_out[2](h).to(dtype)
 
     def _attend(self, q, kv, *, context_mask=None, causal_offset=None,
                 rel_bias=None):
         """q (b, n, h, d); kv (b, m, d) without the null; (b, n, h*d)."""
-        b = q.shape[0]
+        b, heads = q.shape[0], q.shape[2]
         null = self.null_kv.to(kv.dtype).expand(b, 1, self.dim_head)
-        kv_full = torch.cat([null, kv], dim=1)           # (b, m+1, d)
+        # the one K/V head serves this rank's heads only under tp
+        kv_full = copy_to_tp(torch.cat([null, kv], dim=1), self.tp)
         sim = torch.einsum("bnhd,bmd->bhnm", q, kv_full).float()
         if rel_bias is not None:
             sim = sim + rel_bias
@@ -193,11 +229,12 @@ class MultiQueryAttention(nn.Module):
             sim = torch.where((cols <= rows + 1)[None, None], sim, NEG_INF)
         attn = torch.softmax(sim, dim=-1)
         out = torch.einsum("bhnm,bmd->bnhd", attn.to(kv_full.dtype), kv_full)
-        return out.reshape(b, q.shape[1], self.heads * self.dim_head)
+        return out.reshape(b, q.shape[1], heads * self.dim_head)
 
     def _q(self, x_n):
-        q = self.to_q(x_n) * (self.dim_head ** -0.5)
-        return q.reshape(q.shape[0], q.shape[1], self.heads, self.dim_head)
+        q = self.to_q(copy_to_tp(x_n, self.tp)) * (self.dim_head ** -0.5)
+        return q.reshape(q.shape[0], q.shape[1], self.local_heads,
+                         self.dim_head)
 
     def forward(self, x, *, context=None, context_mask=None,
                 keep_q: Optional[torch.Tensor] = None,
@@ -216,17 +253,17 @@ class MultiQueryAttention(nn.Module):
             x_n = self.norm(x).to(self.dtype)
             q_scale = kv_scale = None
             ctx = x_n if context is None else context.to(self.dtype)
-        q = self.to_q[1](_dropout(x_n, keep_q, p), q_scale) * (
-            self.dim_head ** -0.5)
-        q = q.reshape(q.shape[0], q.shape[1], self.heads, self.dim_head)
+        if q_scale is not None:
+            q_scale = copy_to_tp(q_scale, self.tp)
+        q = self.to_q[1](_dropout(copy_to_tp(x_n, self.tp), keep_q, p),
+                         q_scale) * (self.dim_head ** -0.5)
+        q = q.reshape(q.shape[0], q.shape[1], self.local_heads, self.dim_head)
         kv = self.to_kv[1](_dropout(ctx, keep_kv, p), kv_scale)
-        rel_bias = None
-        if self.rel_pos_bias is not None:
-            rel_bias = self.rel_pos_bias(q.shape[1], kv.shape[1] + 1)[None]
         out = self._attend(q, kv, context_mask=context_mask,
                            causal_offset=0 if self.causal else None,
-                           rel_bias=rel_bias)
-        return self.to_out(out).to(x.dtype)
+                           rel_bias=self._rel_bias(q.shape[1],
+                                                   kv.shape[1] + 1))
+        return self._out(out, x.dtype)
 
     # ---- incremental decoding -------------------------------------------
     def project_kv(self, context):
@@ -240,20 +277,29 @@ class MultiQueryAttention(nn.Module):
         x_n = self.norm(x_t).to(self.dtype)
         q = self._q(x_n)
         kv_cache[:, pos] = self.to_kv(x_n)[:, 0].to(kv_cache.dtype)
-        rel_bias = None
-        if self.rel_pos_bias is not None:
-            rel_bias = self.rel_pos_bias(1, kv_cache.shape[1] + 1,
-                                         row_offset=pos)[None]
         mask = (torch.arange(kv_cache.shape[1], device=x_t.device)
                 <= pos).expand(x_t.shape[0], -1)
-        out = self._attend(q, kv_cache, context_mask=mask, rel_bias=rel_bias)
-        return self.to_out(out).to(x_t.dtype)
+        out = self._attend(q, kv_cache, context_mask=mask,
+                           rel_bias=self._rel_bias(1, kv_cache.shape[1] + 1,
+                                                   row_offset=pos))
+        return self._out(out, x_t.dtype)
 
     def cross_step(self, x_t, kv, context_mask):
         """One cross-attention step against precomputed kv."""
         x_n = self.norm(x_t).to(self.dtype)
         out = self._attend(self._q(x_n), kv, context_mask=context_mask)
-        return self.to_out(out).to(x_t.dtype)
+        return self._out(out, x_t.dtype)
+
+
+def split_layer_norm(h: torch.Tensor, width: int, tp) -> torch.Tensor:
+    """LayerNorm without gamma, f32, over a last axis of `width` split over
+    tp: this rank's slice `h` normalised by the full rows' mean and biased
+    variance (two passes, each summed over tp, forward and backward)."""
+    h = h.float()
+    mean = all_reduce_sum_grad(h.sum(-1, keepdim=True), tp) / width
+    d = h - mean
+    var = all_reduce_sum_grad((d * d).sum(-1, keepdim=True), tp) / width
+    return d * torch.rsqrt(var + 1e-5)
 
 
 class FeedForward(nn.Sequential):
@@ -267,8 +313,27 @@ class FeedForward(nn.Sequential):
                          nn.GELU(), FixedBetaLayerNorm(dim * mult),
                          Dense(dim * mult, dim, dtype))
         self.dtype, self.fold = dtype, fold_ln_scale
+        self.tp = None  # the tp group, set by parallel.sharding.shard_gpt_
+
+    def _forward_split(self, x):
+        """The forward on this rank's slice of the 4x width: fc1's output
+        columns, the middle LayerNorm's statistics summed over tp, fc2's
+        partial product summed over tp."""
+        tp, width = self.tp, self[3].gamma.shape[0]
+        gamma_mid = tp_slice(copy_to_tp(self[3].gamma, tp), 0, tp)
+        if self.fold:
+            x_n, g_in = self[0].parts(x)
+            h = self[1](copy_to_tp(x_n, tp), copy_to_tp(g_in, tp))
+            h = self[4](split_layer_norm(self[2](h), width, tp), gamma_mid)
+        else:
+            h = self[1](copy_to_tp(self[0](x).to(self.dtype), tp))
+            h = split_layer_norm(self[2](h), width, tp) * gamma_mid
+            h = self[4](h.to(self.dtype))
+        return reduce_from_tp(h, tp).to(x.dtype)
 
     def forward(self, x):
+        if spans(self.tp):
+            return self._forward_split(x)
         if self.fold:  # both gammas into the next weights (gpt.py:342-353)
             h = self[1](*self[0].parts(x))
             h = self[4](*self[3].parts(self[2](h)))

@@ -24,6 +24,16 @@ above 0 (whose lookup materialises the scores, as the JAX gate at
 favae_tpu/models/quantizer.py:151 does), the expiry candidates and the
 orthogonal regulariser's code sample. `kmeans` takes its first permutation
 the same way; on the card each assignment step goes through `ops.vq`.
+
+Under data parallelism (`dp`, a `parallel.mesh.Group`) each rank holds its
+rows of the global batch, and the train-mode lookup computes what the JAX
+package's global-view step computes over the whole batch
+(favae_tpu/models/quantizer.py:7-9): the EMA's bins and sums are summed
+over dp before the update, the draws are the global batch's (the gumbel
+noise's rows are cut to this rank's, the expiry candidates index the
+global rows, which are fetched from the rank that holds them), and every
+rank ends with the same state. k-means runs on the gathered first batch
+(`train/favae_trainer.py`).
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from favae_tpu_torch.config import QuantizerConfig
+from favae_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                           all_reduce_sum_grad, rows_of)
 from favae_tpu_torch.ops.vq import vq_nearest_cosine, vq_nearest_euclidean
 
 
@@ -202,15 +214,29 @@ def kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int,
     return means, bins
 
 
+def _global_rows(flatten: torch.Tensor, index: torch.Tensor,
+                 dp) -> torch.Tensor:
+    """Rows `index` of the global batch's (N_global, D) rows, of which
+    this rank holds `flatten`: each rank gives the rows it holds (zeros
+    elsewhere) to a sum over dp, which carries their gradient back."""
+    if dp is None:
+        return flatten[index]
+    n = flatten.shape[0]
+    local = index - dp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = flatten[local.clamp(0, n - 1)] * mine[:, None].to(flatten.dtype)
+    return all_reduce_sum_grad(rows, dp)
+
+
 def _expire_dead_codes(cfg: QuantizerConfig, state: CodebookState,
-                       flatten: torch.Tensor,
-                       candidates: torch.Tensor) -> CodebookState:
+                       flatten: torch.Tensor, candidates: torch.Tensor,
+                       dp=None) -> CodebookState:
     """Codes whose EMA count fell below the threshold take the
     l2-normalised batch vectors at `candidates`, count = the threshold
     (favae_tpu/models/quantizer.py:182-203)."""
     thr = cfg.threshold_ema_dead_code
     expired = state.cluster_size < thr
-    cand = l2norm(flatten[candidates])
+    cand = l2norm(_global_rows(flatten, candidates, dp))
     return CodebookState(
         embed=torch.where(expired[:, None], cand, state.embed),
         cluster_size=torch.where(expired, thr, state.cluster_size),
@@ -240,10 +266,16 @@ def _nearest_codes(cfg: QuantizerConfig, flatten: torch.Tensor,
 
 def _ema_update(cfg: QuantizerConfig, state: CodebookState,
                 flatten: torch.Tensor, embed_n: Optional[torch.Tensor],
-                idx: torch.Tensor) -> CodebookState:
-    """The new EMA state (favae_tpu/models/quantizer.py:223-257)."""
+                idx: torch.Tensor, dp=None) -> CodebookState:
+    """The new EMA state (favae_tpu/models/quantizer.py:223-257), from
+    the bins and sums of the global batch under `dp`."""
     k, decay = cfg.codebook_size, cfg.decay
     bins, embed_sum = code_stats(flatten, idx, k)
+    if dp is not None:
+        stats = all_reduce_sum_grad(torch.cat([bins[:, None], embed_sum], 1),
+                                    dp)
+        # contiguous, as code_stats gives them: the same reductions follow
+        bins, embed_sum = stats[:, 0].contiguous(), stats[:, 1:].contiguous()
     cluster = state.cluster_size * decay + bins * (1.0 - decay)
     if cfg.use_cosine_sim:
         # normalised batch means; empty bins keep the current code
@@ -264,7 +296,7 @@ def _ema_update(cfg: QuantizerConfig, state: CodebookState,
 
 def codebook_lookup(cfg: QuantizerConfig, state: CodebookState,
                     x: torch.Tensor, *, train: bool = False,
-                    draws: Optional[QuantizerDraws] = None
+                    draws: Optional[QuantizerDraws] = None, dp=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, CodebookState]:
     """Quantize (N, D) -> (quantize (N, D) f32, indices (N,) int64, state),
     the state EMA-updated when `train` and then dead codes expired where
@@ -273,26 +305,30 @@ def codebook_lookup(cfg: QuantizerConfig, state: CodebookState,
     regulariser on, the new state keeps its graph to `x`, as the JAX
     package's does: the regulariser of the new codes then passes its
     gradient through the EMA update (the reference's torch buffers pass
-    none)."""
+    none). Under `dp`, `x` is this rank's rows of the global batch and
+    `draws` the global batch's."""
     draws = draws or QuantizerDraws()
     x = x.float()
+    noise = draws.gumbel
+    if noise is not None:
+        noise = rows_of(noise, dp, x.shape[0])
     with torch.no_grad():
         if cfg.use_cosine_sim:
             embed_n = l2norm(state.embed)
-            idx = _nearest_codes(cfg, l2norm(x), embed_n, draws.gumbel)
+            idx = _nearest_codes(cfg, l2norm(x), embed_n, noise)
         else:
             embed_n = None
-            idx = _nearest_codes(cfg, x, state.embed, draws.gumbel)
+            idx = _nearest_codes(cfg, x, state.embed, noise)
         quantize = state.embed[idx]  # the codes before this step's update
     if train:
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and cfg.orthogonal_reg_weight > 0):
             flatten = l2norm(x) if cfg.use_cosine_sim else x
-            state = _ema_update(cfg, state, flatten, embed_n, idx)
+            state = _ema_update(cfg, state, flatten, embed_n, idx, dp)
             if (cfg.threshold_ema_dead_code > 0
                     and draws.candidates is not None):
                 state = _expire_dead_codes(cfg, state, flatten,
-                                           draws.candidates)
+                                           draws.candidates, dp)
     return quantize, idx, state
 
 
@@ -323,6 +359,7 @@ class VectorQuantize(nn.Module):
             self.project_in = self.project_out = None
         self._codebook = _Codebook(cfg.codebook_size, d,
                                    euclidean=not cfg.use_cosine_sim)
+        self.dp = None  # the dp group of a data-parallel run
 
     def state(self) -> CodebookState:
         cb = self._codebook
@@ -356,7 +393,7 @@ class VectorQuantize(nn.Module):
         if self.project_in is not None:
             z = self.project_in(z)
         quantize, idx, state = codebook_lookup(cfg, state, z, train=train,
-                                               draws=draws)
+                                               draws=draws, dp=self.dp)
         loss = torch.zeros((), dtype=torch.float32, device=z.device)
         if train:
             quantize = z + (quantize - z).detach()
@@ -379,6 +416,8 @@ class VectorQuantize(nn.Module):
             active = torch.zeros(codes.shape[0], dtype=torch.bool,
                                  device=codes.device)
             active[idx] = True
+            if self.dp is not None:  # the codes the global batch used
+                active = all_reduce_sum(active.float(), self.dp) > 0
             return masked_orthogonal_loss_fn(codes, active)
         if draws is not None and draws.ortho_codes is not None:
             return orthogonal_loss_fn(codes[draws.ortho_codes])

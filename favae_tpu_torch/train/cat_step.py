@@ -16,6 +16,10 @@ and the moments' storage dtypes (`adam_mu_dtype`, `adam_nu_dtype`); with
 f32 moments it is `optax.adamw` (and `torch.optim.AdamW`). The
 frozen FA-VAE and CLIP encodes run without a graph inside the
 full-pipeline step; the latent step starts from their cached outputs.
+Under data parallelism (`dp`) the gradients are averaged over dp before
+the update and the loss is the mean over dp; a tensor-parallel GPT
+(`parallel.sharding`) takes its collectives inside its forward and
+backward, and its optimizer holds moments for this rank's slices.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 from favae_tpu_torch.config import CATConfig
 from favae_tpu_torch.models.gpt import GPT
 from favae_tpu_torch.models.txt_cond import CATModel
+from favae_tpu_torch.parallel.mesh import all_reduce_grads_, all_reduce_mean
 from favae_tpu_torch.train.adam import OptaxAdam
 
 Metrics = Dict[str, torch.Tensor]
@@ -77,12 +82,12 @@ def _split(batch: Sequence[torch.Tensor], grad_accum: int
 
 
 def _train_step(state: CATTrainState, loss_for: Callable, batch, *,
-                generator: torch.Generator, cond_keep, grad_accum: int
-                ) -> Tuple[CATTrainState, Metrics]:
+                generator: torch.Generator, cond_keep, grad_accum: int,
+                dp=None) -> Tuple[CATTrainState, Metrics]:
     """value and grad of `loss_for(*micro_batch, cond_keep)` over
     `grad_accum` equal micro-batches (grads and loss summed, then divided
-    by `grad_accum`, favae_tpu/train/cat_step.py:174-205), then one AdamW
-    update at the schedule's lr of this update."""
+    by `grad_accum`, favae_tpu/train/cat_step.py:174-205), averaged over
+    `dp`, then one AdamW update at the schedule's lr of this update."""
     params = state.opt.params
     for p in params:
         p.grad = None
@@ -96,25 +101,27 @@ def _train_step(state: CATTrainState, loss_for: Callable, batch, *,
     if grad_accum > 1:
         total = total / grad_accum
         torch._foreach_div_([p.grad for p in params], grad_accum)
+    all_reduce_grads_(params, dp)
     state.opt.step(state.lr_schedule(state.step))
     state.step += 1
-    return state, {"loss_gpt": total}
+    return state, {"loss_gpt": all_reduce_mean(total, dp)}
 
 
-def make_cat_train_step(grad_accum: int = 1) -> Callable:
+def make_cat_train_step(grad_accum: int = 1, dp=None) -> Callable:
     """step(state, x, text_ids, generator, cond_keep=None): images (B, H, W,
     3) in [-1, 1] and CLIP text ids (B, 77) through the frozen towers and
-    the GPT. `cond_keep` (B,) bool replaces the conditioning draw."""
+    the GPT. `cond_keep` (B,) bool replaces the conditioning draw. Under
+    `dp` the batch is this rank's part of the global one."""
 
     def train_step(state, x, text_ids, generator, cond_keep=None):
         return _train_step(state, state.cat.gpt_loss, (x, text_ids),
                            generator=generator, cond_keep=cond_keep,
-                           grad_accum=grad_accum)
+                           grad_accum=grad_accum, dp=dp)
 
     return train_step
 
 
-def make_cat_latent_train_step(grad_accum: int = 1) -> Callable:
+def make_cat_latent_train_step(grad_accum: int = 1, dp=None) -> Callable:
     """step(state, z, embeds, mask, generator, cond_keep=None) over cached
     latents (`CATModel.gpt_loss_from_latents`): the frozen towers do not
     run, and with the same latents the update is the full step's."""
@@ -122,7 +129,7 @@ def make_cat_latent_train_step(grad_accum: int = 1) -> Callable:
     def train_step(state, z, embeds, mask, generator, cond_keep=None):
         return _train_step(state, state.cat.gpt_loss_from_latents,
                            (z, embeds, mask), generator=generator,
-                           cond_keep=cond_keep, grad_accum=grad_accum)
+                           cond_keep=cond_keep, grad_accum=grad_accum, dp=dp)
 
     return train_step
 

@@ -3,7 +3,9 @@ validation CE and the cached-latent path (port of
 favae_tpu/train/cat_trainer.py; reference: cat_scripts/train_cat.py:
 69-244).
 
-One card: lr = base_lr * batch_size. The GPT trains with the frozen
+lr = base_lr * batch_size * world, `batch_size` a rank's share of the
+global batch (1 process: world 1), as the JAX trainer counts every device
+(favae_tpu/train/cat_trainer.py:55-61). The GPT trains with the frozen
 FA-VAE and CLIP towers either run inside every step (the full pipeline) or
 run once before training (`cache_latents`, `data/latent_cache.py`), after
 which a loader over the cache with the same seed replays the image
@@ -18,6 +20,18 @@ GPT, its AdamW moments, the step and the generator; the frozen towers
 come from their own files. Sample previews on `img_steps` and after
 validation draw from a generator of their own, seeded from `seed` and the
 step, so turning them on leaves the training trajectory as it was.
+
+With a `mesh` (`parallel.mesh.make_mesh`) the ranks form a `(dp, tp)`
+grid: the GPT's weights split over tp (`parallel.sharding.shard_gpt_`),
+the frozen towers replicated, each dp group's loader shard holding
+`batch_size * tp` samples a step that its tp ranks share. The gradients
+are averaged over dp; the dropout generator is seeded from (seed, dp
+rank), so the masks are equal within a tp group, where they act on
+replicated activations. Checkpoints hold gathered full tensors (the file
+of a tp=1 run, plus every dp rank's generator state), written by rank 0;
+a run resumes at another tp. Validation is the global mean; previews
+are sampled by dp rank 0's tp group through the split blocks and written
+by rank 0.
 """
 
 from __future__ import annotations
@@ -33,6 +47,10 @@ from favae_tpu_torch.config import CATConfig
 from favae_tpu_torch.data.latent_cache import precompute_latents
 from favae_tpu_torch.data.pipeline import DataLoader
 from favae_tpu_torch.models.txt_cond import CATModel, build_cat
+from favae_tpu_torch.parallel.mesh import (all_reduce_sum, assert_replicated,
+                                           is_main_process, world_group)
+from favae_tpu_torch.parallel.sharding import (gather_gpt_state,
+                                               shard_gpt_, shard_gpt_state)
 from favae_tpu_torch.profiling import ProfileWindow, StepClock
 from favae_tpu_torch.train.cat_step import (CATAdamW, CATTrainState,
                                             cat_eval_step,
@@ -52,36 +70,48 @@ class CATTrainer:
                  grad_accum: int = 1, cache_latents: bool = False,
                  cat: Optional[CATModel] = None,
                  log_dir: Optional[str] = None, save_every_epoch: int = 1,
-                 enable_profiler: bool = False):
+                 enable_profiler: bool = False, mesh=None):
         """`cat` replaces the seeded random CATModel that `build_cat` would
         make (for weights loaded by the caller); `enable_profiler` profiles
         steps [2, 5) of the first epoch (`profiling.ProfileWindow`)."""
         self.cfg, self.save_dir = cfg, save_dir
         self.device = resolve_device(device)
-        self.lr = cfg.base_lr * batch_size
+        self.mesh = mesh
+        self.dp = mesh.dp if mesh is not None else None
+        self.tp = mesh.tp if mesh is not None else None
+        world = mesh.world if mesh is not None else 1
+        main = is_main_process()
+        self.lr = cfg.base_lr * batch_size * world
         self.lr_schedule = make_step_schedule(
             steps_per_epoch, warmup_epochs=cfg.warmup_epochs,
             epochs=cfg.epochs, lr=self.lr, min_lr=cfg.min_lr,
             enabled=enabled_warmup)
         self.cat = cat or build_cat(cfg, self.device, seed=seed,
                                     tokenizer=tokenizer)
+        if mesh is not None:
+            assert_replicated(list(self.cat.gpt.parameters())
+                              + list(self.cat.favae.parameters())
+                              + list(self.cat.clip.parameters()),
+                              world_group(), "the CAT weights")
+            shard_gpt_(self.cat.gpt, self.tp)
         self.state = CATTrainState(cat=self.cat,
                                    opt=CATAdamW(self.cat.gpt, cfg),
                                    lr_schedule=self.lr_schedule)
         self.cache_latents = cache_latents
         if cache_latents:
-            self.train_step = make_cat_latent_train_step(grad_accum)
+            self.train_step = make_cat_latent_train_step(grad_accum, self.dp)
             self.eval_step = cat_latent_eval_step
         else:
-            self.train_step = make_cat_train_step(grad_accum)
+            self.train_step = make_cat_train_step(grad_accum, self.dp)
             self.eval_step = cat_eval_step
         self.seed = seed
+        dp_rank = self.dp.rank if self.dp is not None else 0
         self.generator = torch.Generator(device=self.device).manual_seed(
-            seed + 1)
+            (dp_rank << 32) + seed + 1)
         self.ckpt = CheckpointManager(save_dir, save_every_epoch,
                                       device=self.device)
-        self.writer = MetricWriter(log_dir)
-        self.enable_profiler = enable_profiler
+        self.writer = MetricWriter(log_dir if main else None)
+        self.enable_profiler = enable_profiler and main
         self.profile: Optional[Dict] = None
         self.start_epoch = 0
         self.precompute_s = 0.0  # host seconds of the latent precompute
@@ -95,7 +125,8 @@ class CATTrainer:
         AdamW, the step and the dropout generator from there, with the
         epoch and best score of its metadata; a reference-format `.pt`
         (`CelebA_CAT.pt`, or the state_dict) warm-starts the GPT with a
-        fresh optimizer."""
+        fresh optimizer (its full weights cut to this rank's slices under
+        tp)."""
         if path is None:
             sd, meta = self.ckpt.try_resume()
             if sd is not None:
@@ -105,7 +136,9 @@ class CATTrainer:
             return
         if os.path.isfile(path):
             from favae_tpu_torch.convert import load_reference_gpt
-            load_reference_gpt(self.cat.gpt, path)
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            sd = sd.get("transformer_model", sd)
+            load_reference_gpt(self.cat.gpt, shard_gpt_state(sd, self.tp))
             self.state = CATTrainState(cat=self.cat,
                                        opt=CATAdamW(self.cat.gpt, self.cfg),
                                        lr_schedule=self.lr_schedule)
@@ -119,16 +152,42 @@ class CATTrainer:
 
     def state_dict(self) -> Dict:
         """What a checkpoint holds: the GPT, its AdamW, the step and the
-        dropout generator's state."""
-        return {"gpt": self.cat.gpt.state_dict(),
-                "opt": self.state.opt.state_dict(), "step": self.state.step,
-                "generator": self.generator.get_state()}
+        dropout generator's state; under a mesh the GPT and the moments
+        gathered to full tensors over tp (every rank takes part), and
+        `dp_generators` every dp rank's generator state."""
+        opt = self.state.opt.state_dict()
+        names = self.state.opt.names
+        for k in ("mu", "nu"):
+            full = gather_gpt_state(dict(zip(names, opt[k])), self.tp)
+            opt[k] = [full[n] for n in names]
+        sd = {"gpt": gather_gpt_state(self.cat.gpt.state_dict(), self.tp),
+              "opt": opt, "step": self.state.step,
+              "generator": self.generator.get_state()}
+        if self.dp is not None and self.dp.size > 1:
+            states = [None] * self.dp.size
+            torch.distributed.all_gather_object(
+                states, self.generator.get_state(), group=self.dp.group)
+            sd["generator"], sd["dp_generators"] = states[0], states
+        return sd
 
     def load_state_dict(self, sd: Dict) -> None:
-        self.cat.gpt.load_state_dict(sd["gpt"], strict=True)
-        self.state.opt.load_state_dict(sd["opt"])
+        """Restore a `state_dict` of a run at any tp: full tensors are cut
+        to this rank's slices. A dp rank other than 0 takes its own saved
+        generator state where the checkpoint has one for it and keeps its
+        seeded one otherwise."""
+        self.cat.gpt.load_state_dict(shard_gpt_state(sd["gpt"], self.tp),
+                                     strict=True)
+        names = self.state.opt.names
+        opt = dict(sd["opt"])
+        for k in ("mu", "nu"):
+            part = shard_gpt_state(dict(zip(names, opt[k])), self.tp)
+            opt[k] = [part[n] for n in names]
+        self.state.opt.load_state_dict(opt)
         self.state.step = int(sd["step"])
-        self.generator.set_state(sd["generator"].cpu())
+        dp_rank = self.dp.rank if self.dp is not None else 0
+        states = sd.get("dp_generators") or [sd["generator"]]
+        if dp_rank < len(states):
+            self.generator.set_state(states[dp_rank].cpu())
 
     def _args(self, batch):
         """The step's tensors on the device: (x, text ids) on the full
@@ -137,13 +196,17 @@ class CATTrainer:
             z, embeds, mask, _ids, _caps = batch
             return tuple(torch.from_numpy(a).to(self.device)
                          for a in (z, embeds, mask))
-        x, captions = batch
+        # (images, [CLIP images], captions): no step reads the CLIP view
+        # (favae_tpu/train/cat_trainer.py, _prep_batch)
+        x, captions = batch[0], batch[-1]
         return (torch.from_numpy(x).to(self.device),
                 self.cat.tokenize(list(captions)))
 
     def latent_loader(self, loader: DataLoader) -> DataLoader:
         """Precompute the frozen towers' outputs over `loader`'s dataset and
-        wrap them in a loader with the same batch size, shuffle and seed."""
+        wrap them in a loader with the same batch size, shuffle, seed and
+        shard (the cache covers the whole dataset on every rank, as the
+        JAX trainer's does)."""
         t0 = time.perf_counter()
         ds = precompute_latents(self.cat, loader.ds, loader.batch_size,
                                 num_workers=loader.num_workers,
@@ -152,7 +215,9 @@ class CATTrainer:
         return DataLoader(ds, loader.batch_size,
                           num_workers=loader.num_workers,
                           shuffle=loader.shuffle, seed=loader.seed,
-                          drop_last=loader.drop_last)
+                          drop_last=loader.drop_last,
+                          shard_index=loader.shard_index,
+                          shard_count=loader.shard_count)
 
     def train_epoch(self, loader, epoch: int, print_steps: int = 10,
                     img_steps: int = 1000) -> None:
@@ -173,7 +238,7 @@ class CATTrainer:
             self.state, m = self.train_step(self.state, *args,
                                             self.generator)
             losses.append(m["loss_gpt"])
-            seen += args[0].shape[0]
+            seen += args[0].shape[0] * (self.dp.size if self.dp else 1)
             gstep = epoch * steps_per_epoch + step
             if step % print_steps == 0:
                 now = time.perf_counter()
@@ -203,7 +268,10 @@ class CATTrainer:
         beside the batch's images (on the cached path the FA-VAE decode of
         its cached tokens, which stand for the images there), from a
         generator seeded from `seed` and `step` (JAX folds the step into
-        its key), never the training one."""
+        its key), never the training one. Under a mesh dp rank 0's tp group
+        samples (through the split blocks) and rank 0 writes."""
+        if self.dp is not None and self.dp.rank != 0:
+            return
         if self.cache_latents:
             g = self.cfg.gpt.image_encoded_dim
             gt = self.cat.decode_to_img(args[0][:n].reshape(-1, g, g))
@@ -232,6 +300,10 @@ class CATTrainer:
             total += m["loss_gpt"] * args[0].shape[0]
             n += args[0].shape[0]
             last = (batch, args)
+        if self.dp is not None:  # the global mean: sums and counts
+            both = all_reduce_sum(torch.stack([total, total.new_tensor(
+                float(n))]), self.dp)
+            total, n = both[0], int(both[1].item())
         val = total.item() / max(n, 1)
         self.val.append({"epoch": epoch, "loss_gpt": val, "samples": n})
         self.writer.scalars("val", {"loss_gpt": val}, epoch)
@@ -256,6 +328,7 @@ class CATTrainer:
             self.train_epoch(train_loader, epoch, print_steps, img_steps)
             score = (self.validate(val_loader, epoch) if val_loader
                      else float("inf"))
-            self.ckpt.on_epoch_end(epoch, score, self.state_dict(),
-                                   is_last=epoch == epochs - 1)
+            last = epoch == epochs - 1
+            if self.ckpt.due(epoch, last):  # a gather under tp
+                self.ckpt.on_epoch_end(epoch, score, self.state_dict(), last)
         self.writer.close()

@@ -31,6 +31,17 @@ both (the parity tests pass the JAX package's). With dead-code expiry on,
 stage 0, as the JAX step does.
 
 The epoch gates (disc_on, ffl_on) pick one of four step functions.
+
+Data parallelism (`dp`, a `parallel.mesh.Group`; the model's quantizer and
+BatchNorms carry it too, `parallel.mesh.attach_dp`): each rank steps on its
+rows of the global batch and the step computes what the JAX package's
+global-view step computes on the whole batch. The quantizer draws are the
+global batch's, from a generator equal on every rank; the adaptive weight
+comes from the final conv's two weight gradients averaged over dp; the
+generator's and the discriminator's gradients are averaged over dp before
+each Adam step (`all_reduce_grads_`, a few flat buckets); the logged
+losses are means over dp and the codebook telemetry counts the global
+batch's codes. With no group none of this runs.
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ from favae_tpu_torch.models.quantizer import QuantizerDraws, draw_quantizer
 from favae_tpu_torch.ops.ffl import feature_tap_ffl, focal_frequency_loss
 from favae_tpu_torch.ops.gaussian import gaussian_blur_nhwc
 from favae_tpu_torch.ops.losses import hinge_d_loss, hinge_g_loss
+from favae_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                           all_reduce_mean, all_reduce_sum)
 from favae_tpu_torch.train.favae_state import FavaeTrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -67,12 +80,14 @@ def final_conv_weight_grad(h_pre: torch.Tensor, weight: torch.Tensor,
     return g.float()
 
 
-def codebook_telemetry(indices: torch.Tensor, k: int) -> Metrics:
+def codebook_telemetry(indices: torch.Tensor, k: int, dp=None) -> Metrics:
     """Batch code usage (%) and perplexity of the stage-0 assignments
-    (favae_tpu/train/favae_step.py:146-166)."""
+    (favae_tpu/train/favae_step.py:146-166), of the global batch under
+    `dp`."""
     flat = indices.reshape(-1)
     bins = torch.zeros(k, dtype=torch.float32, device=flat.device)
     bins.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    bins = all_reduce_sum(bins, dp)
     p = bins / torch.clamp(bins.sum(), min=1.0)
     pos = p > 0
     ent = torch.where(pos, p * torch.log(torch.where(pos, p, 1.0)), 0.0)
@@ -84,14 +99,34 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
     return t.detach().requires_grad_()
 
 
+def optimizer_params(opt) -> List[torch.Tensor]:
+    """The parameters an optimizer (torch.optim or `GroupAdam`) steps."""
+    if isinstance(opt, torch.optim.Optimizer):
+        return [p for g in opt.param_groups for p in g["params"]]
+    return [p for adam, _ in opt.parts for p in adam.params]
+
+
+def dp_mean_metrics(m: Metrics, dp) -> Metrics:
+    """The loss terms (each a mean over this rank's rows) averaged over
+    dp, in one all-reduce; the rest (global already) as they are."""
+    if dp is None:
+        return m
+    keys = [k for k in m if k.startswith("loss_")]
+    mean = all_reduce_mean(torch.stack([m[k].float() for k in keys]), dp)
+    return {**m, **dict(zip(keys, mean.unbind()))}
+
+
 def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
-                    train_cfg: TrainConfig, *, disc_on: bool, ffl_on: bool
-                    ) -> Callable[..., Tuple[FavaeTrainState, Metrics]]:
+                    train_cfg: TrainConfig, *, disc_on: bool, ffl_on: bool,
+                    dp=None) -> Callable[..., Tuple[FavaeTrainState, Metrics]]:
     """The train step for one (disc_on, ffl_on) gate combination:
     step(state, x NHWC, draws=None) -> (state, metrics), the state updated
     in place and the metrics 0-d tensors (no host sync) plus `x_recon`.
     `draws`, where given, holds the quantizer draws of stage 0 and of the
-    stage-1 recompute; else they come from `state.generator`."""
+    stage-1 recompute (the global batch's under `dp`); else they come from
+    `state.generator`. Under `dp`, `x` is this rank's rows of the global
+    batch."""
+    world = dp.size if dp is not None else 1
     pw = loss_cfg.perceptual_weight
     cw = loss_cfg.codebook_weight
     dw = loss_cfg.disc_weight
@@ -103,7 +138,7 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
     def draw(state, x, given, i) -> QuantizerDraws:
         if given is not None:
             return given[i]
-        n = x.shape[0] * (x.shape[1] // f) * (x.shape[2] // f)
+        n = world * x.shape[0] * (x.shape[1] // f) * (x.shape[2] // f)
         return draw_quantizer(qcfg, n, state.generator)
 
     def train_step(state: FavaeTrainState, x: torch.Tensor,
@@ -121,7 +156,7 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
         enc_feats, dec_feats = outs["enc_feats"], outs["dec_feats"]
         with torch.no_grad():
             m: Metrics = {"loss_q": loss_q.detach(),
-                          **codebook_telemetry(outs["indices"], k_codes)}
+                          **codebook_telemetry(outs["indices"], k_codes, dp)}
             if qcfg.threshold_ema_dead_code > 0:
                 # an expired code's count is set to exactly the threshold
                 m["cb_replaced"] = (outs["cb_state"].cluster_size
@@ -148,6 +183,9 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
             h = h_pre.detach()
             g_recon = final_conv_weight_grad(h, w, d_recon)
             g_disc = final_conv_weight_grad(h, w, d_disc)
+            if dp is not None:  # the global batch's weight gradients
+                g_recon, g_disc = all_reduce_mean(
+                    torch.stack([g_recon, g_disc]), dp).unbind()
             weight_d = torch.clamp(
                 torch.linalg.vector_norm(g_recon)
                 / (torch.linalg.vector_norm(g_disc) + 1e-4), 0.0, 1e4)
@@ -210,6 +248,7 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
                 cts.append(ct)
         state.opt_g.zero_grad(set_to_none=True)
         torch.autograd.backward(roots, cts)
+        all_reduce_grads_(optimizer_params(state.opt_g), dp)
         state.opt_g.step()
         model.quantizer.set_state(outs["cb_state"])
         del outs, roots, cts
@@ -230,12 +269,14 @@ def make_train_step(model_cfg: VQGANConfig, loss_cfg: LossConfig,
             loss_d = hinge_d_loss(logits_real, logits_fake)
             state.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
+            all_reduce_grads_(optimizer_params(state.opt_d), dp)
             state.opt_d.step()
             m["loss_d"] = loss_d.detach()
         else:
             m["loss_d"] = torch.zeros((), device=x.device)
 
         state.step += 1
+        m = dp_mean_metrics(m, dp)
         m["x_recon"] = x_recon0.detach()
         return state, m
 

@@ -12,6 +12,15 @@ restores a run. Before the first epoch of a fresh run, `fit` runs the
 first-batch data-dependent inits: the k-means codebook and ActNorm. The
 state's generator, seeded from the config and kept in the checkpoints,
 draws k-means' first permutation and the steps' quantizer draws.
+
+With a `mesh` (`parallel.mesh.make_mesh`, one process a rank under
+torchrun) the trainer is data parallel as the JAX trainer's mesh is
+(favae_tpu/train/favae_trainer.py:50-55): lr = base_lr * batch * world,
+the loader gives each rank its shard, the step and the model reduce over
+dp (`train/favae_step.py`), the parameters and buffers are checked equal
+on every rank at the start, k-means runs on the gathered first global
+batch, validation is the global mean, and rank 0 alone prints, logs,
+profiles and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ from favae_tpu_torch import resolve_device
 from favae_tpu_torch.config import LossConfig, TrainConfig, VQGANConfig
 from favae_tpu_torch.models.discriminator import actnorm_data_init_
 from favae_tpu_torch.models.quantizer import CodebookState, kmeans, l2norm
+from favae_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_sum,
+                                           assert_replicated, attach_dp,
+                                           is_main_process)
 from favae_tpu_torch.profiling import ProfileWindow, StepClock
 from favae_tpu_torch.train.favae_state import (FavaeTrainState,
                                                make_optimizers)
@@ -50,24 +62,34 @@ class FavaeTrainer:
                  train_cfg: TrainConfig, save_dir: str, device=None,
                  lpips_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  log_dir: Optional[str] = None,
-                 enable_profiler: bool = False):
+                 enable_profiler: bool = False, mesh=None):
         self.model_cfg, self.loss_cfg, self.train_cfg = (model_cfg, loss_cfg,
                                                          train_cfg)
         self.save_dir = save_dir
-        self.enable_profiler = enable_profiler
+        main = is_main_process()
+        self.enable_profiler = enable_profiler and main
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dp = mesh.dp if mesh is not None else None
+        world = mesh.world if mesh is not None else 1
         # lr = base_lr * batch * devices (reference: train_favae.py:250-251)
-        self.lr = train_cfg.base_lr * train_cfg.batch_size
+        self.lr = train_cfg.base_lr * train_cfg.batch_size * world
         self.state = FavaeTrainState.create(
             model_cfg, loss_cfg, train_cfg, self.lr, self.device,
             lpips_state_dict=lpips_state_dict)
+        if self.dp is not None:
+            attach_dp(self.state.model, self.dp)
+            model = self.state.model
+            assert_replicated([*model.parameters(), *model.buffers()],
+                              self.dp, "the FA-VAE's parameters and buffers")
         self._steps = {(d, f): make_train_step(model_cfg, loss_cfg, train_cfg,
-                                               disc_on=d, ffl_on=f)
+                                               disc_on=d, ffl_on=f,
+                                               dp=self.dp)
                        for d in (False, True) for f in (False, True)}
         self.eval_step = make_eval_step(loss_cfg)
         self.ckpt = CheckpointManager(save_dir, train_cfg.save_every_epoch,
                                       device=self.device)
-        self.writer = MetricWriter(log_dir)
+        self.writer = MetricWriter(log_dir if main else None)
         self.start_epoch = 0
         self.history: List[Dict[str, float]] = []  # one entry per step
         self.val: List[Dict[str, float]] = []      # one entry per epoch
@@ -119,7 +141,10 @@ class FavaeTrainer:
         its first permutation `first` or one drawn from the state's
         generator, and each ActNorm's loc and scale from its input in
         D(x_recon) of an inference forward (reference:
-        models/discriminator.py:67-86)."""
+        models/discriminator.py:67-86). Under dp, `x0` is this rank's shard
+        of the first global batch: k-means runs on the gathered global
+        batch (`first` a permutation of its rows) and ActNorm takes its
+        statistics."""
         qcfg = self.model_cfg.quantizer
         dcfg = self.model_cfg.discriminator
         use_actnorm = dcfg.use_actnorm and dcfg.kind == "patch"
@@ -129,7 +154,7 @@ class FavaeTrainer:
         model.eval()
         x = to_unit_range(self._to_device(np.asarray(x0)))
         if qcfg.kmeans_init:
-            flat = model.codebook_inputs(x)
+            flat = all_gather_rows(model.codebook_inputs(x), self.dp)
             if qcfg.use_cosine_sim:
                 flat = l2norm(flat)
             if first is None:
@@ -144,7 +169,8 @@ class FavaeTrainer:
         if use_actnorm:
             x_recon, _ = model.reconstruct(x)
             n = actnorm_data_init_(model.discriminator,
-                                   x_recon.clone().permute(0, 3, 1, 2))
+                                   x_recon.clone().permute(0, 3, 1, 2),
+                                   self.dp)
             print0(f"ActNorm data-dependent init: {n} layers initialized "
                    "from the first batch")
 
@@ -168,7 +194,7 @@ class FavaeTrainer:
             clock.mark()
             self.state, m = step_fn(self.state, self._to_device(x))
             pending.append({k: v for k, v in m.items() if v.dim() == 0})
-            imgs_since += x.shape[0]
+            imgs_since += x.shape[0] * (self.dp.size if self.dp else 1)
             gstep = epoch * steps_per_epoch + step
             if step % cfg.print_steps == 0:
                 scalars = dict(zip(pending[-1], torch.stack(
@@ -223,6 +249,10 @@ class FavaeTrainer:
             totals += torch.stack([out[k] for k in keys]) * x.shape[0]
             n += x.shape[0]
             last = (x, out["x_recon"])
+        if self.dp is not None:  # the global mean: sums and counts
+            both = all_reduce_sum(torch.cat([totals, totals.new_tensor(
+                [float(n)])]), self.dp)
+            totals, n = both[:-1], int(both[-1].item())
         row = dict(zip(keys, (totals / max(n, 1)).tolist()))
         self.writer.scalars("val", row, epoch)
         if last is not None:

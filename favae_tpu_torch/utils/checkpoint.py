@@ -6,6 +6,10 @@ A checkpoint is a directory holding `state.pt` (the state as a nested dict
 of tensors and numbers, written by `torch.save`), `host_meta.json` (epoch,
 score, best score) and `_COMMITTED`, written last. The semantics are the
 JAX package's; only the storage changes, from Orbax to `torch.save`.
+
+In a run of several processes only rank 0 writes (the state is equal on
+every rank, or gathered to full tensors by the caller), and every rank
+waits for the write at a barrier; every rank reads on resume.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from favae_tpu_torch.parallel.mesh import barrier, is_main_process
 
 STATE_FILE = "state.pt"
 NOT_A_PORT_CHECKPOINT = (
@@ -98,7 +104,8 @@ def restore_checkpoint(path: str, device=None) -> Tuple[Any, Dict]:
 
 class CheckpointManager:
     """latest/best policy of the reference trainer
-    (train_favae.py:363-382); `device` is where restores load to."""
+    (train_favae.py:363-382); `device` is where restores load to. Only
+    rank 0 (`writer`) writes or renames; the others wait at a barrier."""
 
     def __init__(self, save_dir: str, save_every_epoch: int = 1,
                  device=None):
@@ -106,6 +113,7 @@ class CheckpointManager:
         self.save_every_epoch = save_every_epoch
         self.device = device
         self.best_score = float("inf")
+        self.writer = is_main_process()
         os.makedirs(self.save_dir, exist_ok=True)
 
     @property
@@ -116,6 +124,12 @@ class CheckpointManager:
     def best_path(self):
         return os.path.join(self.save_dir, "best")
 
+    def due(self, epoch: int, is_last: bool = False) -> bool:
+        """Whether `on_epoch_end` writes after `epoch` (a trainer whose
+        state is costly to assemble asks first)."""
+        return self.save_every_epoch > 0 and (
+            epoch % self.save_every_epoch == 0 or is_last)
+
     def on_epoch_end(self, epoch: int, score: float, state: Any,
                      is_last: bool = False) -> None:
         """Persist latest (and best-so-far) on cadence epochs.
@@ -124,17 +138,23 @@ class CheckpointManager:
         score improves (so a run without validation, score inf, never
         writes best). A sparser cadence writes both only on cadence epochs
         and the final one, and best is then the best of the persisted
-        epochs. The state is copied to the host once for both writes.
+        epochs. ``save_every_epoch=0`` (a port-only value) writes nothing:
+        for smoke runs and measurements. The state is copied to the host
+        once for both writes.
         """
-        if not (epoch % self.save_every_epoch == 0 or is_last):
+        if not self.due(epoch, is_last):
             return
         meta = {"epoch": epoch + 1, "score": score,
                 "best_score": min(self.best_score, score)}
-        state = to_host(state)
-        save_checkpoint(self.latest_path, state, meta)
-        if score < self.best_score:
+        best = score < self.best_score
+        if best:
             self.best_score = score
-            save_checkpoint(self.best_path, state, meta)
+        if self.writer:
+            state = to_host(state)
+            save_checkpoint(self.latest_path, state, meta)
+            if best:
+                save_checkpoint(self.best_path, state, meta)
+        barrier()
 
     def try_resume(self) -> Tuple[Any, Dict]:
         """(state, meta) of the newest restorable checkpoint, or (None, {}).
@@ -144,13 +164,14 @@ class CheckpointManager:
         renames), then ``latest.old`` (died before the new write
         committed); the one chosen is renamed back to ``latest`` first.
         """
-        if not os.path.isdir(self.latest_path):
+        if self.writer and not os.path.isdir(self.latest_path):
             tmp = self.latest_path + ".tmp"
             old = self.latest_path + ".old"
             if os.path.isdir(tmp) and os.path.exists(_commit_path(tmp)):
                 os.rename(tmp, self.latest_path)
             elif os.path.isdir(old):
                 os.rename(old, self.latest_path)
+        barrier()
         if os.path.isdir(self.latest_path):
             state, meta = restore_checkpoint(self.latest_path, self.device)
             self.best_score = meta.get("best_score", float("inf"))

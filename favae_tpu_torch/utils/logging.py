@@ -4,8 +4,9 @@ utils.py:122-124).
 
 The writer is `torch.utils.tensorboard.SummaryWriter`, in TensorBoard's
 TensorFlow-free mode. Where a `log_dir` is given and tensorboard does not
-import, the writer says so in one line and records nothing. The port runs
-one process, so `print0` prints.
+import, the writer says so in one line and records nothing. In a run of
+several processes `print0` prints on rank 0 only, and the trainers give
+the writer a `log_dir` on rank 0 only.
 """
 
 from __future__ import annotations
@@ -17,9 +18,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from favae_tpu_torch.parallel.mesh import is_main_process
+
 
 def print0(*args, **kwargs):
-    print(*args, **kwargs, flush=True)
+    if is_main_process():
+        print(*args, **kwargs, flush=True)
 
 
 def _host(x) -> np.ndarray:

@@ -11,8 +11,9 @@
   CPU, on the full pipeline and with `--cache_latents` (the same updates:
   a loader over the cache replays the image loader's batches, the same
   generator draws the same masks), and with `--grad_accum 2`; it raises
-  without a card unless given `--device cpu`, and its unported flags raise
-  "not yet ported".
+  without a card unless given `--device cpu`, and `--tp 2` raises in a
+  single process (tensor parallelism needs a torchrun launch whose world
+  tp divides; tests/test_torch_port_ddp_cat.py runs it).
 """
 
 import os
@@ -147,7 +148,7 @@ def test_train_cat_cli_needs_a_card_unless_told_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--tp", "2"]])
 def test_train_cat_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="world size 1 not divisible by tp=2"):
         _run(tmp_path, *flags)
 
 
