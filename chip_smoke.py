@@ -22,7 +22,10 @@ Phases (any failure exits non-zero):
    rows, one launch a call, the same bits twice, over 100 replays of a
    graph of the call and on two streams at once, its work plan held
    against the Python copy; `decode_step_fused` at gpt2_medium's full width
-   and depth over 256 positions);
+   and depth over 256 positions, with the position an int and a device
+   scalar (the same bits), a position outside the cache counted in the
+   error word, raised and nothing written, and the 256 steps replayed from
+   one captured step against the same step called eagerly, bit for bit);
 4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
@@ -44,21 +47,24 @@ Phases (any failure exits non-zero):
    InceptionV3 features of 2 images at 256 px on the card (f32 and bf16)
    against the CPU (f32);
 7. serve slice: `favae_tpu_torch.cli.generate` at cat_celebahq, 2 prompts x
-   2 images, seeded random weights, through its three engines (exact bf16,
-   `--quantized` on the whole-step kernel, `--quantized --gpt_name
-   gpt2_large` on the int8 FFN kernel, whose token step runs as a CUDA
-   graph with launches counted per replay), counts
-   zeroed before and read after each; `sample_tokens` at gpt2_large
-   through the graph on its exact route (the FFN-only route's yardstick)
-   and its FFN-only route, one seed twice and another once; then the same
-   weights, text embeddings and gumbel noise through each engine on the
-   card and on the CPU at 2 layers;
+   2 images, seeded random weights, through its three engines (exact bf16
+   through `GPT.sample`, `--quantized` on the whole-step kernel,
+   `--quantized --gpt_name gpt2_large` on the int8 FFN kernel; every token
+   step runs as a CUDA graph with launches counted per replay), counts
+   zeroed before and read after each, ms a token beside the card's name
+   and power limit; `GPT.sample` at gpt2_medium through the graph, one
+   seed twice and another once, and the fused route replayed against the
+   same step called eagerly (the same tokens and logits, bit for bit);
+   `sample_tokens` at gpt2_large through the graph on its exact route (the
+   FFN-only route's yardstick) and its FFN-only route, one seed twice and
+   another once; then the same weights, text embeddings and gumbel noise
+   through each engine on the card and on the CPU at 2 layers;
 8. CAT train slice: `favae_tpu_torch.cli.train_cat` at cat_celebahq
    (gpt2_medium, CLIP ViT-L/14 text, f16 cosine FA-VAE), batch 16, 256 px,
    synthetic captions, seeded random weights, one short epoch on the full
    pipeline (the frozen encode, rows 1-3, in every step), saving, with a
    sample preview at global step 0 and after validation (an FA-VAE decode
-   each), a second epoch resumed from `latest`, `cli.export_torch --cat`
+   each, timed), a second epoch resumed from `latest`, `cli.export_torch --cat`
    of `best` and `cli.generate` on the `.pt` and on the directory (the
    same tokens), and one epoch with `--cache_latents` (the encode once,
    before the steps), counts zeroed just before each run and held to the
@@ -1010,12 +1016,61 @@ def check_ffn_streams(rows=8, k=1280, seed=32, rounds=20):
     return row
 
 
+def decode_replay(xs, rel_all, cross_kv, cross_bias, fused, cfg):
+    """The whole-step kernel's 256 positions in order on one cache, the
+    position a device scalar that the step advances in place: once as one
+    captured step replayed (`graphs.run_steps`), once called eagerly 256
+    times. Both must give the same x at every position and the same cache,
+    bit for bit, with one launch a position."""
+    import torch
+    from favae_tpu_torch.graphs import run_steps
+    from favae_tpu_torch.ops import decode_step_kernel as dk
+    seq = xs.shape[0]
+
+    def loop(graphed):
+        caches = torch.zeros(cfg.n_layer, xs.shape[1], seq, cfg.dim_head,
+                             dtype=torch.bfloat16, device="cuda")
+        outs = torch.empty_like(xs)
+        pos = torch.zeros((), dtype=torch.long, device="cuda")
+
+        def step():
+            at = pos.view(1)
+            x_new, _ = dk.decode_step_fused(
+                xs.index_select(0, at)[0], pos, caches, cross_kv, cross_bias,
+                rel_all.index_select(0, at)[0], fused, cfg)
+            outs.index_copy_(0, at, x_new[None])
+            pos.add_(1)
+
+        before = dk.LAUNCHES["decode_step"]
+        if graphed:
+            run_steps(step, seq, "cuda")
+        else:
+            for _ in range(seq):
+                step()
+        torch.cuda.synchronize()
+        return outs, caches, dk.LAUNCHES["decode_step"] - before
+
+    xg, cg, ng = loop(True)
+    xe, ce, ne = loop(False)
+    dk.check_positions(xs.device)
+    out = {"x_same_bits": bool(torch.equal(xg, xe)),
+           "caches_same_bits": bool(torch.equal(cg, ce)),
+           "launches_replayed": ng, "launches_eager": ne}
+    if not (out["x_same_bits"] and out["caches_same_bits"]
+            and ng == ne == seq):
+        raise AssertionError(f"decode_step replayed against eager: {out}")
+    return out
+
+
 def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
                       check_at=(0, 1, 128, 255), **widths):
     """The whole-step kernel at full width and depth with seeded random
     weights (`widths` replaces fields of the preset): 256 positions in order
     on one cache; at `check_at` the plain version takes the same inputs and
-    a copy of the cache as it stood."""
+    a copy of the cache as it stood, and the kernel takes them again with
+    the position a device scalar (the int call's bits); a position outside
+    the cache counts in the error word, raises there and writes nothing;
+    then `decode_replay`."""
     import torch
     from favae_tpu_torch import config as C
     from favae_tpu_torch.models.gpt import GPT
@@ -1061,6 +1116,10 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
     caches = torch.zeros(n_layer, rows, seq, dh, device="cuda",
                          dtype=torch.bfloat16)
     checks, x_new = {}, None
+
+    def at(pos):  # the position as a device scalar
+        return torch.full((), pos, dtype=torch.long, device="cuda")
+
     with torch.inference_mode():
         for pos in range(seq):
             before = caches.clone() if pos in check_at else None
@@ -1073,6 +1132,8 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
                 continue
             if out.data_ptr() != caches.data_ptr():
                 raise AssertionError("decode_step_fused returned a new cache")
+            on_card = before.clone()
+            x_dev, _ = dk.decode_step_fused(xs[pos], at(pos), on_card, *args)
             ref = before.clone()
             xp, _ = dk.decode_step_fused_plain(xs[pos], pos, ref, *args)
             ok, err, differ = close_to_plain("decode_step", x_new, xp)
@@ -1090,21 +1151,51 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
                            "x_max": xp.float().abs().max().item(),
                            "cache_row_max_abs_err": row_err,
                            "other_cache_rows_untouched": untouched,
+                           "device_pos_same_bits": bool(
+                               torch.equal(x_dev, x_new)
+                               and torch.equal(on_card, caches)),
                            "finite": bool(torch.isfinite(x_new.float()).all())}
-            if not (ok and row_ok and untouched and checks[pos]["finite"]):
+            if not (ok and row_ok and untouched and checks[pos]["finite"]
+                    and checks[pos]["device_pos_same_bits"]):
                 raise AssertionError(f"decode_step_fused at pos {pos}: "
                                      f"{checks[pos]}")
         pos = seq - 1
         args = (cross_kv, cross_bias, rel_all[pos].contiguous(), fused, cfg)
-        ms = time_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches, *args))
-        ms_first = time_ms(lambda: dk.decode_step_fused(xs[0], 0, caches,
-                                                        *args))
+        # positions outside the cache: counted on the card, nothing written,
+        # raised by check_positions; the launches after them are right
+        x_last, kept = x_new, caches.clone()
+        dk.decode_step_fused(xs[pos], at(seq), caches, *args)
+        errors = dk.position_errors(caches.device)
+        dk.decode_step_fused(xs[pos], at(-1), caches, *args)
+        try:
+            dk.check_positions(caches.device)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        x_after, _ = dk.decode_step_fused(xs[pos], at(pos), caches, *args)
+        bad_pos = {"errors_counted": errors, "raised": raised,
+                   "cache_untouched": bool(torch.equal(caches, kept)),
+                   "next_launch_same_bits": bool(torch.equal(x_after,
+                                                             x_last))}
+        if not (errors == 1 and raised and all(bad_pos.values())):
+            raise AssertionError(f"decode_step at pos {seq} and -1: {bad_pos}")
+        # timed as the token graph launches it, the position a device
+        # scalar; the int call (which first fills such a scalar) beside it
+        pos_t, first_t = at(pos), at(0)
+        ms = time_ms(lambda: dk.decode_step_fused(xs[pos], pos_t, caches,
+                                                  *args))
+        ms_int = time_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches,
+                                                      *args))
+        ms_first = time_ms(lambda: dk.decode_step_fused(xs[0], first_t,
+                                                        caches, *args))
         # a step streams all of the model's int8 weights (more than the L2
         # holds), so its device time is its cold time
-        dev_ms = device_ms(lambda: dk.decode_step_fused(xs[pos], pos, caches,
-                                                        *args), calls=10)
+        dev_ms = device_ms(lambda: dk.decode_step_fused(
+            xs[pos], pos_t, caches, *args), calls=10)
+        dev_ms_int = device_ms(lambda: dk.decode_step_fused(
+            xs[pos], pos, caches, *args), calls=10)
         dev_ms_first = device_ms(lambda: dk.decode_step_fused(
-            xs[0], 0, caches, *args), calls=10)
+            xs[0], first_t, caches, *args), calls=10)
         plain_ms = time_ms(lambda: dk.decode_step_fused_plain(
             xs[pos], pos, caches, *args), iters=3, warmup=1)
         plain_ms_first = time_ms(lambda: dk.decode_step_fused_plain(
@@ -1116,6 +1207,7 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
                             dtype=torch.int64, device="cuda")
         dk.decode_step_fused(xs[pos], pos, caches, *args, phase_clock=clock)
         stamps = int((clock[:clock.numel() // 2] != 0).sum())
+        replay = decode_replay(xs, rel_all, cross_kv, cross_bias, fused, cfg)
     if (stamps - 1) % n_layer or (stamps - 1) // n_layer != len(dk.PHASES):
         raise AssertionError(f"decode_step: the kernel wrote {stamps} phase "
                              f"times over {n_layer} layers, PHASES names "
@@ -1131,6 +1223,8 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
            "checks": checks,
            "max_abs_err": max(c["x_max_abs_err"] for c in checks.values()),
            "ms": ms, "device_ms": dev_ms, "cold_ms": dev_ms,
+           "ms_int_pos": ms_int, "device_ms_int_pos": dev_ms_int,
+           "positions_outside": bad_pos, "replay": replay,
            "plain_ms": plain_ms, "ms_at_pos_0": ms_first,
            "device_ms_at_pos_0": dev_ms_first,
            "plain_ms_at_pos_0": plain_ms_first, "library_ms": None,
@@ -1193,6 +1287,7 @@ def int8_kernel_rows(checks, launches):
             "on_main_path": name != "matmul_int8", "shape": check["shape"],
             **{f: check[f] for f in (
                 "max_abs_err", "ms", "device_ms", "cold_ms", "plain_ms",
+                "ms_int_pos", "device_ms_int_pos",
                 "bound_ms", "bound_by", "library_ms", "library_device_ms",
                 "library_cold_ms", "ms_at_pos_0", "device_ms_at_pos_0",
                 "plain_ms_at_pos_0", "phases_per_layer",
@@ -1201,7 +1296,8 @@ def int8_kernel_rows(checks, launches):
             for other in ("gpt2_mini", "ragged"):
                 rows[-1][other] = {f: check[other][f] for f in (
                     "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-                    "device_ms_at_pos_0", "bound_ms")}
+                    "device_ms_int_pos", "device_ms_at_pos_0",
+                    "bound_ms")}
     return rows
 
 
@@ -1660,10 +1756,11 @@ def serve_slice():
         got = {k: v for counts in (gn.LAUNCHES, *int8_counts())
                for k, v in counts.items()}
         imgs, toks = out["images"], out["tokens"]
-        res = {"route": out["route"], "launches": got,
+        res = {"route": out["route"], "launches": got, "card": nvidia_smi(),
                **{k: out[k] for k in (
                    "clip_ms", "prepare_ms", "first_token_ms", "ms_per_token",
-                   "tokens_per_s", "images_per_s", "decode_ms")},
+                   "median_ms_per_token", "tokens_per_s", "images_per_s",
+                   "decode_ms")},
                "token_steps_per_s": 1e3 / out["ms_per_token"],
                "wall_s_incl_model_build": wall,
                "max_memory_allocated_gib":
@@ -1690,6 +1787,101 @@ def serve_slice():
                   "matmul_int8": 0}
 
 
+def timed_tokens(sample):
+    """Call `sample(on_token)` with every kernel's count zeroed: ms of the
+    first token, mean ms of the others (on a graphed route the second
+    includes the capture) and their median, from CUDA events recorded
+    after each token is queued, and the launches it made."""
+    import torch
+    from favae_tpu_torch.graphs import launch_counts
+    marks = []
+
+    def on_token(pos):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    for counts in launch_counts():
+        for k in counts:
+            counts[k] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = sample(on_token)
+    torch.cuda.synchronize()
+    token_ms = [a.elapsed_time(e) for a, e in zip([start] + marks, marks)]
+    got = {k: v for counts in launch_counts() for k, v in counts.items() if v}
+    return out, {"first_token_ms": token_ms[0],
+                 "ms_per_token": statistics.mean(token_ms[1:]),
+                 "median_ms_per_token": statistics.median(token_ms[1:]),
+                 "total_ms": sum(token_ms), "launches": got}
+
+
+def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
+    """At gpt2_medium (the serve slice's exact and fused routes), 8 CFG
+    rows, seeded random weights and text embeddings, top-k 500, top-p 0.95,
+    scale 3: `GPT.sample` through the CUDA graph of its token step with one
+    seed twice and another once (no hand-written kernel launched), a CPU
+    generator refused; then the fused route of `sample_tokens` through the
+    graph, 256 `decode_step` launches (`decode_replay` holds its kernel's
+    replays against eager calls)."""
+    import torch
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.models.decode_engine import sample_tokens
+    from favae_tpu_torch.models.gpt import GPT
+    from favae_tpu_torch.ops.decode_step_kernel import prepare_fused_decode
+    cfg = getattr(C, gpt_name)(vocab_size=1024, n_cond_embed=768)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        gpt = GPT(cfg, dtype=torch.bfloat16).eval()
+    gpt.cuda()
+    rng = np.random.RandomState(seed)
+    embeds = torch.from_numpy(rng.randn(b, 77, 768).astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.rand(b, 77) > 0.3).cuda()
+    seq = cfg.image_encoded_dim ** 2
+    noise = torch.from_numpy(rng.gumbel(size=(seq, b, 1024)).astype(
+        np.float32)).cuda()
+    kw = dict(top_k=500, top_p=0.95, cond_scale=3.0)
+
+    def sample(gen_seed):
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        return timed_tokens(lambda on_token: gpt.sample(
+            embeds, mask, generator=gen, on_token=on_token, **kw))
+
+    out = {"card": nvidia_smi()}
+    with torch.inference_mode():
+        a, out["gpt_sample_graph"] = sample(3)
+        a2, second = sample(3)
+        c, _ = sample(4)
+        out["gpt_sample_graph_again_ms_per_token"] = second["ms_per_token"]
+        try:
+            gpt.sample(embeds, mask, generator=torch.Generator(), **kw)
+            out["cpu_generator_refused"] = False
+        except ValueError:
+            out["cpu_generator_refused"] = True
+        fused = prepare_fused_decode(gpt, cfg)
+        tf, out["fused_graph"] = timed_tokens(
+            lambda on_token: sample_tokens(
+                cfg, gpt, embeds, mask, on_token=on_token, fused=fused,
+                dtype=torch.bfloat16, gumbel_noise=noise, **kw))
+    out["same_seed_same_tokens"] = bool(torch.equal(a, a2))
+    out["other_seed_other_tokens"] = not torch.equal(a, c)
+    out["tokens_in_range"] = bool(0 <= int(min(a.min(), tf.min()))
+                                  and int(max(a.max(), tf.max())) < 1024)
+    log("serve-sample-graph", json.dumps(out))
+    want = {"decode_step": seq}
+    if (out["gpt_sample_graph"]["launches"] != {}
+            or out["fused_graph"]["launches"] != want
+            or not (out["same_seed_same_tokens"]
+                    and out["other_seed_other_tokens"]
+                    and out["tokens_in_range"]
+                    and out["cpu_generator_refused"])):
+        raise AssertionError(f"GPT.sample and the fused route through the "
+                             f"token-step graph: {out}")
+    del gpt, fused
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     """`sample_tokens` at gpt2_large, 8 CFG rows, seeded random weights and
     text embeddings, top-k 500, top-p 0.95, scale 3: the exact route (the
@@ -1699,7 +1891,6 @@ def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     FFN-only route twice with one seed and once with another."""
     import torch
     from favae_tpu_torch import config as C
-    from favae_tpu_torch.graphs import launch_counts
     from favae_tpu_torch.models.decode_engine import (quantize_decode_params,
                                                       sample_tokens)
     from favae_tpu_torch.models.gpt import GPT
@@ -1715,31 +1906,13 @@ def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     seq = cfg.image_encoded_dim ** 2
 
     def run(kw, gen_seed):
-        marks = []
-
-        def on_token(pos):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
-
-        for counts in launch_counts():
-            for k in counts:
-                counts[k] = 0
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        grid = sample_tokens(
+        grid, res = timed_tokens(lambda on_token: sample_tokens(
             cfg, gpt, embeds, mask, top_k=500, top_p=0.95, cond_scale=3.0,
             dtype=torch.bfloat16, on_token=on_token,
             generator=torch.Generator(device="cuda").manual_seed(gen_seed),
-            **kw)
-        torch.cuda.synchronize()
-        token_ms = [a.elapsed_time(e) for a, e in zip([start] + marks, marks)]
-        got = {k: v for counts in launch_counts() for k, v in counts.items()
-               if v}
-        return grid, {"first_token_ms": token_ms[0],
-                      "ms_per_token": statistics.mean(token_ms[1:]),
-                      "tokens_per_s": grid.numel() / sum(token_ms) * 1e3,
-                      "launches": got}
+            **kw))
+        res["tokens_per_s"] = grid.numel() / res["total_ms"] * 1e3
+        return grid, res
 
     out = {}
     with torch.inference_mode():
@@ -1877,7 +2050,7 @@ def cat_train_slice(decode_gn):
     def rise(before):
         return {k: v - before[k] for k, v in rows_1_4().items()}
 
-    in_steps, previews = [], []
+    in_steps, previews, preview_s = [], [], []
     train_epoch, log_samples = CATTrainer.train_epoch, CATTrainer._log_samples
 
     def counted_epoch(self, *args, **kw):
@@ -1887,8 +2060,11 @@ def cat_train_slice(decode_gn):
 
     def counted_preview(self, name, *args, **kw):
         before = rows_1_4()
+        t0 = time.perf_counter()
         log_samples(self, name, *args, **kw)
-        previews.append((name, rise(before)))
+        launched = rise(before)             # synchronises
+        preview_s.append(time.perf_counter() - t0)
+        previews.append((name, launched))
 
     run_dir = ROOT / "output" / "cat" / "chip_smoke_cat"
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -1901,6 +2077,7 @@ def cat_train_slice(decode_gn):
             shutil.rmtree(run_dir)
         in_steps.clear()
         previews.clear()
+        preview_s.clear()
         saves = []
         zero_counts()
         torch.cuda.empty_cache()
@@ -1928,7 +2105,8 @@ def cat_train_slice(decode_gn):
                "lr": out["lr"],
                "launches": launches, "int8_launches": others,
                "launches_in_epoch": in_steps[0] if in_steps else None,
-               "previews": previews[:], "precompute_s": out["precompute_s"],
+               "previews": previews[:], "preview_s": preview_s[:],
+               "precompute_s": out["precompute_s"],
                "max_memory_allocated_gib":
                    torch.cuda.max_memory_allocated() / 2 ** 30,
                "wall_s_incl_model_build": wall, "losses": losses,
@@ -3543,6 +3721,7 @@ def main():
     t_phase = time.perf_counter()
     serve_runs, serve_launches = serve_slice()
     torch.cuda.empty_cache()
+    serve_sample_graph()
     serve_graph_routes()
     serve_cross_check()
     phase_s["7_serve"] = time.perf_counter() - t_phase

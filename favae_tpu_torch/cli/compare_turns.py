@@ -1,10 +1,16 @@
 """Time two checkouts of favae_tpu_torch on one card, in turns.
 
     python -m favae_tpu_torch.cli.compare_turns OLD_DIR NEW_DIR
-        [--parts serve train recon] [--out FILE]
+        [--parts decode serve train recon] [--out FILE]
 
 Each turn is a fresh process whose working directory is one checkout (so it
-builds and loads that checkout's kernels). The `serve` part:
+builds and loads that checkout's kernels). The `decode` part, first in the
+process: the whole-step kernel at gpt2_medium, 8 rows, on seeded inputs
+(`chip_smoke.check_decode_step`'s cross bias), 256 positions in order
+given as ints, the bits of x and of the cache row at 0, 1, 128 and 255,
+then `ms` and `device_ms` at pos 255 three times, the position given as
+the checkout's token step gives it (a 0-dim device tensor where its kernel
+reads one, `decode_pos`). The `serve` part:
 `chip_smoke.serve_slice()` (`cli.generate` at cat_celebahq through its
 engines, ms a token from CUDA events), `chip_smoke.check_decode_step()` (the
 whole-step kernel at gpt2_medium, `device_ms` from a replayed CUDA graph)
@@ -23,8 +29,9 @@ ms) and the `recon` time of `chip_smoke.py` (CUDA events around 10 eager
 `reconstruct` calls of a batch of 16, host included), three times. The
 turns run OLD, NEW, NEW, OLD; the
 script prints one JSON line a turn and a last line that says whether
-`matmul_int8` gave the same bits in both checkouts (serve part), and writes
-all of it to FILE (default output/turns.json).
+`matmul_int8` (serve part) and the whole-step kernel (decode part) gave
+the same bits in both checkouts, and writes all of it to FILE (default
+output/turns.json).
 """
 
 import argparse
@@ -40,13 +47,52 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 out = {"tree": sys.argv[1], "card": cs.nvidia_smi()}
 parts = sys.argv[3].split(",")
-bits = []
+bits = {"matmul_int8": [], "decode_step": []}
+if "decode" in parts:
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.models.gpt import GPT
+    from favae_tpu_torch.ops import decode_step_kernel as dk
+    cfg = C.gpt2_medium(vocab_size=1024, n_cond_embed=768)
+    torch.manual_seed(11)
+    gpt = GPT(cfg).cuda().eval()
+    rng = np.random.RandomState(11)
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+    L, H, dh, d = cfg.n_layer, cfg.n_head, cfg.dim_head, cfg.n_embed
+    with torch.inference_mode():
+        fused = dk.prepare_fused_decode(gpt, cfg)
+        kv, xs = t(L, 8, 78, dh).bfloat16(), t(256, 8, d).bfloat16()
+        rel = t(256, L, H, 257)
+        rel[..., 0] = 0.0
+        bias = torch.zeros(8, 78, device="cuda")
+        bias[4:, 1:] = -1e9
+        bias[0, 20:] = -1e9
+        caches = torch.zeros(L, 8, 256, dh, dtype=torch.bfloat16,
+                             device="cuda")
+        for pos in range(256):
+            args = (kv, bias, rel[pos].contiguous(), fused, cfg)
+            x_new, _ = dk.decode_step_fused(xs[pos], pos, caches, *args)
+            if pos in (0, 1, 128, 255):
+                bits["decode_step"] += [
+                    x_new.view(torch.int16).cpu(),
+                    caches[:, :, pos].view(torch.int16).cpu()]
+        # timed as the checkout's token step launches it: a tree whose
+        # kernel reads the position from the device gets it there
+        last = (torch.full((), 255, dtype=torch.long, device="cuda")
+                if hasattr(dk, "check_positions") else 255)
+        out["decode_pos"] = type(last).__name__
+        step = lambda: dk.decode_step_fused(xs[255], last, caches, *args)
+        out["decode"] = [{"ms": cs.time_ms(step, iters=50),
+                          "device_ms": cs.device_ms(step, calls=20)}
+                         for _ in range(3)]
+    del gpt, fused
+    torch.cuda.empty_cache()
 if "serve" in parts:
     from favae_tpu_torch.ops import int8_matmul as im
     runs, launches = cs.serve_slice()
-    out["serve"] = {name: {k: r[k] for k in ("ms_per_token", "first_token_ms",
-                                             "tokens_per_s", "launches")}
-                    for name, r in runs.items()}
+    out["serve"] = {name: {k: r.get(k) for k in (
+        "ms_per_token", "median_ms_per_token", "first_token_ms",
+        "tokens_per_s", "launches")} for name, r in runs.items()}
     step = cs.check_decode_step()
     out["decode_step"] = {k: step[k] for k in ("device_ms", "ms",
                                                "max_abs_err")}
@@ -56,7 +102,7 @@ if "serve" in parts:
         x = torch.from_numpy(rng.randn(8, k).astype(np.float32)).cuda()
         w = torch.from_numpy((rng.randn(k, n) * 0.05).astype(np.float32))
         wq, scale = im.quantize_weight(w.cuda())
-        bits.append(im.matmul_int8(x.bfloat16(), wq, scale).view(
+        bits["matmul_int8"].append(im.matmul_int8(x.bfloat16(), wq, scale).view(
             torch.int16).cpu())
 if "train" in parts:
     from favae_tpu_torch.cli import train_favae
@@ -135,7 +181,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new")
-    ap.add_argument("--parts", nargs="+", choices=("serve", "train", "recon"),
+    ap.add_argument("--parts", nargs="+",
+                    choices=("decode", "serve", "train", "recon"),
                     default=["serve", "train"])
     ap.add_argument("--out", default="output/turns.json")
     args = ap.parse_args(argv)
@@ -156,12 +203,13 @@ def main(argv=None):
         turns.append(json.loads(line[0][5:]))
         print(json.dumps(turns[-1]), flush=True)
         bits.setdefault(name, []).append(torch.load(path))
-    same = (all(torch.equal(a, b) for a, b in zip(bits["old"][0],
-                                                  bits["new"][0]))
-            if "serve" in args.parts else None)
-    result = {"turns": turns, "matmul_int8_same_bits": same}
-    out.write_text(json.dumps(result, indent=1))
-    print(json.dumps({"matmul_int8_same_bits": same}))
+    part = {"matmul_int8": "serve", "decode_step": "decode"}
+    same = {f"{k}_same_bits": (
+        all(torch.equal(a, b) for a, b in zip(bits["old"][0][k],
+                                              bits["new"][0][k]))
+        if part[k] in args.parts else None) for k in part}
+    out.write_text(json.dumps({"turns": turns, **same}, indent=1))
+    print(json.dumps(same))
     return 0
 
 

@@ -87,7 +87,9 @@ def main(argv=None, cfg=None):
     """Generate; returns a dict with `images` (N, H, W, 3) in [0, 1],
     `tokens` (N, g, g), `prompts`, the stage times `clip_ms`, `prepare_ms`,
     `decode_ms`, the token loop's `first_token_ms`, `ms_per_token` (the
-    mean over the other tokens), `tokens_per_s` (sampled tokens of all
+    mean over the other tokens, which on the card includes the capture of
+    the token step's graph after the first), `median_ms_per_token` (the
+    steady token), `tokens_per_s` (sampled tokens of all
     images over the loop's time), `images_per_s` (over the whole call after
     the models are built) and `route`. `cfg` replaces the CATConfig that the
     flags resolve to."""
@@ -154,6 +156,7 @@ def main(argv=None, cfg=None):
         "decode_ms": timings["decode"] * 1e3,
         "first_token_ms": token_ms[0],
         "ms_per_token": float(np.mean(token_ms[1:])),
+        "median_ms_per_token": float(np.median(token_ms[1:])),
         "tokens_per_s": grids.size / timings["tokens"],
         "images_per_s": imgs.shape[0] / wall,
     }

@@ -47,6 +47,12 @@
 // other heads of that row use the same bf16 values from shared memory, so no
 // item reads a cache row that another block writes in the same launch. Cache
 // rows beyond pos are neither read nor trusted.
+//
+// The position is a device scalar, as the TPU kernel's SMEM `pos`, so that a
+// CUDA graph of the token step serves every position: every block reads it
+// once at entry and passes it to its self-attention items. One outside
+// [0, S) adds one to the error word and the launch writes nothing (no cache
+// row, no x); the caller reads the word later.
 #include <cooperative_groups.h>
 
 #include "int8_mma.cuh"
@@ -91,7 +97,9 @@ struct DecodeParams {
   __nv_bfloat16* x_out;           // (rows, d)
   float* scratch;
   unsigned long long* clock;      // 2 (1 + 11 L) times in ns (barrier), or null
-  int L, rows, d, heads, S, M, F, pos;
+  const long long* pos;           // () int64: the cache row this step writes
+  int* error;                     // () int32: += 1 a launch given a bad pos
+  int L, rows, d, heads, S, M, F;
   int kc[NPROD];                  // chunk of K of each product
   float eps;
 };
@@ -499,7 +507,7 @@ __device__ __forceinline__ void prefetch_kv(const DecodeParams& p,
 // the TPU kernel rounds them.
 template <bool SELF>
 __device__ void attend_item(const DecodeParams& p, const Scratch& sc, int l,
-                            int row, int head, float* sm) {
+                            int row, int head, float* sm, const int pos) {
   const int inner = p.heads * DH;
   const int tid = threadIdx.x;
   float* qs = sm;               // DH
@@ -508,7 +516,7 @@ __device__ void attend_item(const DecodeParams& p, const Scratch& sc, int l,
   float* sh = sm + 3 * DH;      // WARPS
   float* og = sm + 3 * DH + WARPS;    // WARPS x DH
   float* pr = og + WARPS * DH;        // n_slots scores, then probabilities
-  const int n_slots = SELF ? p.pos + 2 : p.M;
+  const int n_slots = SELF ? pos + 2 : p.M;
   const int nkq = cdiv(p.d, p.kc[P_QS]);
   const float* scr = p.scratch;
 
@@ -525,7 +533,7 @@ __device__ void attend_item(const DecodeParams& p, const Scratch& sc, int l,
     const __nv_bfloat16 v = __float2bfloat16(a);
     kv_new[dd] = __bfloat162float(v);
     if (head == 0)
-      p.caches[(((size_t)l * p.rows + row) * p.S + p.pos) * DH + dd] = v;
+      p.caches[(((size_t)l * p.rows + row) * p.S + pos) * DH + dd] = v;
   } else if (SELF && tid < 3 * DH) {
     const int dd = tid - 2 * DH;
     kv_null[dd] = bf16_round(p.null_kv[(size_t)l * DH + dd]);
@@ -542,7 +550,7 @@ __device__ void attend_item(const DecodeParams& p, const Scratch& sc, int l,
   float mx = -3.0e38f;
   for (int j = tid; j < n_slots; j += THREADS) {
     float s = 0.f;
-    if (SELF && (j == 0 || j == p.pos + 1)) {
+    if (SELF && (j == 0 || j == pos + 1)) {
       const float* src = j == 0 ? kv_null : kv_new;
 #pragma unroll 8
       for (int dd = 0; dd < DH; ++dd) s = fmaf(qs[dd], src[dd], s);
@@ -582,7 +590,7 @@ __device__ void attend_item(const DecodeParams& p, const Scratch& sc, int l,
   const int d2 = 2 * (tid & 31), grp = tid >> 5;
   auto kv_at = [&](int j) -> float2 {
     if (SELF && j == 0) return make_float2(kv_null[d2], kv_null[d2 + 1]);
-    if (SELF && j == p.pos + 1) return make_float2(kv_new[d2], kv_new[d2 + 1]);
+    if (SELF && j == pos + 1) return make_float2(kv_new[d2], kv_new[d2 + 1]);
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
         kv + (size_t)(SELF ? j - 1 : j) * DH + d2));
   };
@@ -772,6 +780,13 @@ decode_step_kernel(const DecodeParams p,
                    const __grid_constant__ CUtensorMap m_oc,
                    const __grid_constant__ CUtensorMap m_1,
                    const __grid_constant__ CUtensorMap m_2) {
+  // the position first: a launch given one outside [0, S) counts it and
+  // leaves before it asks for a weight box or writes anything
+  const long long pos = *p.pos;
+  if (pos < 0 || pos >= p.S) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(p.error, 1);
+    return;
+  }
   cg::grid_group grid = cg::this_grid();
   extern __shared__ uint8_t smem[];
   __shared__ __align__(8) uint64_t bars[WORKERS][RING];
@@ -844,9 +859,9 @@ decode_step_kernel(const DecodeParams p,
 
       for (int it = block; it < rows * p.heads; it += nblocks) {
         if (self)
-          attend_item<true>(p, sc, l, it / p.heads, it % p.heads, xs);
+          attend_item<true>(p, sc, l, it / p.heads, it % p.heads, xs, pos);
         else
-          attend_item<false>(p, sc, l, it / p.heads, it % p.heads, xs);
+          attend_item<false>(p, sc, l, it / p.heads, it % p.heads, xs, pos);
       }
       grid_barrier(grid, p, phases, phase);
 
@@ -938,18 +953,20 @@ extern "C" int favae_decode_step_items(int K, int N, int kc, int rows,
 }
 
 // One decode step. Pointers as in DecodeParams plus the six int8 stacks
-// (L, K, N) (`clock` may be null); `grid` from favae_decode_step_grid for the
-// same shapes. Returns the CUDA error of the cooperative launch (0 on
-// success; cudaErrorNotSupported where CUDA gives no tensor map).
+// (L, K, N) (`clock` may be null; `pos` and `error` are device scalars);
+// `grid` from favae_decode_step_grid for the same shapes. Returns the CUDA
+// error of the cooperative launch (0 on success; cudaErrorNotSupported where
+// CUDA gives no tensor map).
 extern "C" int favae_decode_step(
     const void* x, void* caches, const void* cross_kv, const void* cross_bias,
     const void* rel_rows, const void* wq_s, const void* sq_s, const void* wo_s,
     const void* so_s, const void* wq_c, const void* sq_c, const void* wo_c,
     const void* so_c, const void* wkv, const void* null_kv, const void* norms,
     const void* w1, const void* s1, const void* w2, const void* s2,
-    const void* c2, void* x_out, void* scratch, void* clock, int L, int rows,
-    int d, int heads, int S, int M, int F, int pos, int kc_q, int kc_o,
-    int kc_1, int kc_2, float eps, int grid, void* stream) {
+    const void* c2, void* x_out, void* scratch, void* clock, const void* pos,
+    void* error, int L, int rows, int d, int heads, int S, int M, int F,
+    int kc_q, int kc_o, int kc_1, int kc_2, float eps, int grid,
+    void* stream) {
   DecodeParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.caches = static_cast<__nv_bfloat16*>(caches);
@@ -969,8 +986,10 @@ extern "C" int favae_decode_step(
   p.x_out = static_cast<__nv_bfloat16*>(x_out);
   p.scratch = static_cast<float*>(scratch);
   p.clock = static_cast<unsigned long long*>(clock);
+  p.pos = static_cast<const long long*>(pos);
+  p.error = static_cast<int*>(error);
   p.L = L; p.rows = rows; p.d = d; p.heads = heads; p.S = S; p.M = M;
-  p.F = F; p.pos = pos;
+  p.F = F;
   const int kcs[NPROD] = {kc_q, kc_o, kc_q, kc_o, kc_1, kc_2};
   for (int i = 0; i < NPROD; ++i) p.kc[i] = kcs[i];
   p.eps = eps;

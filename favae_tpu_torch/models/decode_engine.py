@@ -18,11 +18,13 @@ The int8 routes are lossy opt-ins (`CATModel.sample_images(quantized=True)`);
 the reference sampler has no quantized mode. Each weight is cast to `dtype`
 once before the loop. A token step keeps its state in tensors it updates in
 place (the cache position among them, as a 0-dim tensor) and makes no host
-sync, so on the card the exact and `qparams` routes run it as a CUDA graph,
-the counterpart of the JAX engine's `lax.scan` over positions
-(`graphs.run_steps`: the first token eagerly, then one capture of the step
-replayed for the others); on the CPU the same step runs eagerly. The fused
-route stays an eager loop: its kernel takes the position as an int.
+sync, so on the card every route runs it as a CUDA graph, the counterpart of
+the JAX engine's `lax.scan` over positions (`graphs.run_steps`: the first
+token eagerly, then one capture of the step replayed for the others); on the
+CPU the same step runs eagerly. The fused route's kernel reads the position
+from that tensor, as the TPU kernel reads its SMEM scalar, and counts a
+position outside the cache in a device error word, which the route reads
+once after its last token.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from favae_tpu_torch.config import GPTConfig
 from favae_tpu_torch.graphs import run_steps
 from favae_tpu_torch.models.gpt import (GPT, NEG_INF, gumbel_sample,
                                         top_k_top_p_filter)
-from favae_tpu_torch.ops.decode_step_kernel import decode_step_fused
+from favae_tpu_torch.ops.decode_step_kernel import (check_positions,
+                                                    decode_step_fused)
 from favae_tpu_torch.ops.ffn_int8 import (ffn_block_int8, layer_norm_rows,
                                           prepare_ffn_weights)
 
@@ -138,11 +141,12 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
         rel_table = torch.stack([blk.self_attn.rel_pos_bias.pos_bias.weight
                                  for blk in blocks]).float()   # (L, n_rel, H)
 
-        def step_logits(tok_prev, pos, i):
+        def step_logits(tok_prev, pos):
             x = embed_step(tok_prev, pos)
-            rel = rel_table[:, rel_idx[i], :]                  # (L, S, H)
+            sel = rel_idx.index_select(0, pos.view(1))[0]
+            rel = rel_table.index_select(1, sel)               # (L, S, H)
             rel_rows = F.pad(rel.permute(0, 2, 1), (1, 0)).contiguous()
-            x, _ = decode_step_fused(x, i, caches, cross_kv_st, cross_bias,
+            x, _ = decode_step_fused(x, pos, caches, cross_kv_st, cross_bias,
                                      rel_rows, fused, c)
             return head(x)
     else:
@@ -159,7 +163,7 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
             {k: v[l] for k, v in qparams["ffn"].items()}
             for l in range(c.n_layer)]
 
-        def step_logits(tok_prev, pos, i=None):
+        def step_logits(tok_prev, pos):
             x = embed_step(tok_prev, pos)
             # self-attention mask bias (cols <= pos; col 0 the null, visible)
             self_bias = F.pad(torch.where(cols <= pos, 0.0, NEG_INF), (1, 0))
@@ -206,10 +210,10 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
     noise_all = None if gumbel_noise is None else gumbel_noise.to(dev)
     forced_all = None if forced_tokens is None else forced_tokens.to(dev).long()
 
-    def token_step(i=None):  # i: the position as an int, for the fused route
+    def token_step():
         pos = state["pos"]
         at = pos.view(1)
-        logits = cfg_logits(step_logits(state["tok_prev"], pos, i))
+        logits = cfg_logits(step_logits(state["tok_prev"], pos))
         tok = gumbel_sample(top_k_top_p_filter(logits, top_k, top_p),
                             generator, temperature,
                             None if noise_all is None
@@ -223,15 +227,11 @@ def sample_tokens(cfg: GPTConfig, gpt: GPT, text_embeds, text_mask, *,
             state["logits"].index_copy_(1, at, logits[:, None].float())
         pos.add_(1)
 
-    if fused is not None:  # a launch a token that takes the position as an int
-        for i in range(seq_len):
-            token_step(i)
-            if on_token is not None:
-                on_token(i)
-    else:
-        run_steps(token_step, seq_len, dev,
-                  generator=generator if gumbel_noise is None else None,
-                  after=on_token)
+    run_steps(token_step, seq_len, dev,
+              generator=generator if gumbel_noise is None else None,
+              after=on_token)
+    if fused is not None:
+        check_positions(dev)
     g = c.image_encoded_dim
     grid = state["tokens"].reshape(b, g, g)
     if return_logits:

@@ -13,9 +13,11 @@ The parameters are named as the reference's state_dict (`blocks.{i}.{0,1,2}`,
 `to_q.1.weight`, `to_out.2.gamma`, `blocks.{i}.2.{0,1,3,4}`,
 `rel_pos_bias.pos_bias.weight`), so a reference checkpoint loads directly
 (`convert.load_reference_gpt`). The JAX package scans one block over stacked
-(L, ...) parameters; here the blocks are a `ModuleList`, and `sample`'s scan
-over positions is a Python loop under `torch.inference_mode()` with per-layer
-KV caches written in place.
+(L, ...) parameters; here the blocks are a `ModuleList`. `sample`'s scan over
+positions is one token step that keeps its state in tensors updated in place
+(the position a 0-dim tensor, the per-layer KV caches written at it) and
+makes no host sync, so that on the card one CUDA graph of it serves every
+position (`graphs.run_steps`).
 
 Master weights are f32; projections run in `dtype` (bf16 by default) as the
 JAX package's Dense layers do. `sample` casts each weight once, not once a
@@ -46,7 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +57,7 @@ import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
+from favae_tpu_torch.graphs import run_steps
 from favae_tpu_torch.parallel.mesh import all_reduce_sum_grad, spans
 from favae_tpu_torch.parallel.sharding import (copy_to_tp, reduce_from_tp,
                                                tp_slice)
@@ -151,14 +154,19 @@ class RelPosBias2d(nn.Module):
             "pos_indices", torch.from_numpy(_rel_pos_indices(size)).long(),
             persistent=False)
 
-    def forward(self, i: int, j: int, row_offset: Optional[int] = None,
+    def forward(self, i: int, j: int,
+                row_offset: Optional[Union[int, torch.Tensor]] = None,
                 tp=None):
         """Bias (heads, i, j) for a sim of shape (..., i, j); key slot 0 is
         the null kv and gets zero bias. With `row_offset` (incremental
-        decoding, i == 1) the single query row is the one at that position.
-        With a tp group, the bias of this rank's heads only."""
-        rows = (self.pos_indices[:i] if row_offset is None
-                else self.pos_indices[row_offset:row_offset + 1])
+        decoding, i == 1; an int or a 0-dim tensor on the device, gathered
+        there) the single query row is the one at that position. With a tp
+        group, the bias of this rank's heads only."""
+        if row_offset is None:
+            rows = self.pos_indices[:i]
+        else:
+            at = torch.as_tensor(row_offset, device=self.pos_indices.device)
+            rows = self.pos_indices.index_select(0, at.view(1))
         table = self.pos_bias.weight
         if spans(tp):
             table = tp_slice(copy_to_tp(table, tp), 1, tp)
@@ -198,7 +206,7 @@ class MultiQueryAttention(nn.Module):
     def local_heads(self) -> int:
         return self.heads // (self.tp.size if self.tp is not None else 1)
 
-    def _rel_bias(self, i: int, j: int, row_offset: Optional[int] = None):
+    def _rel_bias(self, i: int, j: int, row_offset=None):
         if self.rel_pos_bias is None:
             return None
         return self.rel_pos_bias(i, j, row_offset, self.tp)[None]
@@ -270,13 +278,15 @@ class MultiQueryAttention(nn.Module):
         """kv of a static context (the cross-attention cache)."""
         return self.to_kv(context)
 
-    def decode_step(self, x_t, kv_cache, pos: int):
+    def decode_step(self, x_t, kv_cache, pos: Union[int, torch.Tensor]):
         """One causal self-attention step. x_t (b, 1, dim); kv_cache
-        (b, S, dim_head), whose row `pos` is written in place and whose
-        rows beyond it are masked. Returns the attention output."""
+        (b, S, dim_head), whose row `pos` (a 0-dim int64 tensor on the
+        device, read there; an int is placed in one) is written in place and whose rows
+        beyond it are masked. Returns the attention output."""
+        pos = torch.as_tensor(pos, device=kv_cache.device)
         x_n = self.norm(x_t).to(self.dtype)
         q = self._q(x_n)
-        kv_cache[:, pos] = self.to_kv(x_n)[:, 0].to(kv_cache.dtype)
+        kv_cache.index_copy_(1, pos.view(1), self.to_kv(x_n).to(kv_cache.dtype))
         mask = (torch.arange(kv_cache.shape[1], device=x_t.device)
                 <= pos).expand(x_t.shape[0], -1)
         out = self._attend(q, kv_cache, context_mask=mask,
@@ -386,9 +396,11 @@ class CATBlock(nn.ModuleList):
                             keep_q=cq, keep_kv=ckv) + x
         return self.ff(x) + x
 
-    def decode(self, x, cache, cross_kv, context_mask, pos: int):
+    def decode(self, x, cache, cross_kv, context_mask,
+               pos: Union[int, torch.Tensor]):
         """Incremental step: x (b, 1, dim); cache (b, S, dh), written in
-        place at `pos`; cross_kv (b, m, dh)."""
+        place at `pos` (an int or a 0-dim int64 tensor on the device);
+        cross_kv (b, m, dh)."""
         x = self.self_attn.decode_step(x, cache, pos) + x
         x = self.cross_attn.cross_step(x, cross_kv, context_mask) + x
         return self.ff(x) + x
@@ -529,16 +541,31 @@ class GPT(nn.Module):
         token). CFG runs as a 2B batch: rows [0:B] conditional, [B:2B] with
         an all-false text mask. `gumbel_noise` (S, B, vocab) replaces the
         generator's draws; `on_token(pos)` is called after each token's work is
-        queued. Returns the (B, grid, grid) int64 token grid."""
+        queued. Returns the (B, grid, grid) int64 token grid.
+
+        The token step keeps its state in tensors that it updates in place
+        (the position as a 0-dim tensor, the previous tokens, a (B, S) token
+        buffer) and makes no host sync, as the JAX package's `lax.scan`
+        over positions (favae_tpu/models/gpt.py:592). On the card
+        `graphs.run_steps` runs the first token eagerly and replays one CUDA
+        graph of the step for the others, with a CUDA `generator` registered
+        so that each replay draws anew; a CPU generator there raises (a
+        captured draw on the host would repeat one noise for every token).
+        Under a tp group of more than one rank the step holds collectives,
+        which a graph does not capture: there the same step runs eagerly,
+        token by token, on the card, still with no host sync, and a CPU
+        generator raises there too. On the CPU the step runs eagerly."""
         c = self.cfg
         b = text_token_embeds.shape[0]
         seq_len = c.image_encoded_dim ** 2
         dev = text_token_embeds.device
+        draws = generator if gumbel_noise is None else None
 
         text_token_embeds = text_token_embeds[:, : c.max_text_len]
         text_mask = text_mask[:, : c.max_text_len]
         ctx2 = torch.cat([text_token_embeds, text_token_embeds], 0).float()
         mask2 = torch.cat([text_mask, torch.zeros_like(text_mask)], 0)
+        noise_all = None if gumbel_noise is None else gumbel_noise.to(dev)
 
         with self.cast_weights():
             cross_kv = [blk.cross_attn.project_kv(ctx2) for blk in self.blocks]
@@ -546,10 +573,18 @@ class GPT(nn.Module):
                                  dtype=self.dtype, device=dev)
             axial = self._axial_pos()
             start = self.start_token.expand(2 * b, -1)
-            tok_prev = torch.zeros((2 * b,), dtype=torch.long, device=dev)
-            tokens = []
-            for pos in range(seq_len):
-                x = start if pos == 0 else self.tok_emb(tok_prev) + axial[pos - 1]
+            state = dict(
+                pos=torch.zeros((), dtype=torch.long, device=dev),
+                tok_prev=torch.zeros((2 * b,), dtype=torch.long, device=dev),
+                tokens=torch.zeros((b, seq_len), dtype=torch.long,
+                                   device=dev))
+
+            def token_step():
+                pos = state["pos"]
+                at = pos.view(1)
+                prev = self.tok_emb(state["tok_prev"]) + axial.index_select(
+                    0, (pos - 1).clamp(min=0).view(1))
+                x = torch.where(pos == 0, start, prev)
                 x = self.init_norm(x)[:, None, :].to(self.dtype)
                 for l, blk in enumerate(self.blocks):
                     x = blk.decode(x, caches[l], cross_kv[l], mask2, pos)
@@ -560,13 +595,25 @@ class GPT(nn.Module):
                 logits = top_k_top_p_filter(logits, top_k, top_p)
                 tok = gumbel_sample(
                     logits, generator, temperature,
-                    None if gumbel_noise is None else gumbel_noise[pos])
-                tok_prev = torch.cat([tok, tok], 0)
-                tokens.append(tok)
-                if on_token is not None:
-                    on_token(pos)
+                    None if noise_all is None
+                    else noise_all.index_select(0, at)[0])
+                state["tok_prev"].copy_(torch.cat([tok, tok], 0))
+                state["tokens"].index_copy_(1, at, tok[:, None])
+                pos.add_(1)
+
+            if spans(self.blocks[0].self_attn.tp):
+                if draws is not None and draws.device.type != dev.type:
+                    raise ValueError(f"GPT.sample on {dev} cannot draw from "
+                                     f"a generator on {draws.device}")
+                for i in range(seq_len):   # collectives: no graph, no sync
+                    token_step()
+                    if on_token is not None:
+                        on_token(i)
+            else:
+                run_steps(token_step, seq_len, dev, generator=draws,
+                          after=on_token)
         g = c.image_encoded_dim
-        return torch.stack(tokens, dim=1).reshape(b, g, g)
+        return state["tokens"].reshape(b, g, g)
 
 
 def _need(generator: Optional[torch.Generator]) -> torch.Generator:

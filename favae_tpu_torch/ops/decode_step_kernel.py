@@ -28,14 +28,22 @@ zero-padded.
 
 `decode_step_fused` launches the kernel for CUDA tensors and takes the plain
 PyTorch version, `decode_step_fused_plain`, only for CPU tensors. Both write
-the cache row `pos` in place and return the same cache tensor.
+the cache row `pos` in place and return the same cache tensor. The position
+is a 0-dim integer tensor on the device, as the TPU kernel's `() int32`, so
+that one CUDA graph of a token step serves every position; the kernel reads
+it at entry. A position outside [0, S) cannot be checked on the host without
+a sync: the launch then adds one to a device error word and writes nothing,
+and the caller reads the word once its loop is done (`check_positions`). A
+Python int still works, is placed in such a tensor and is checked on the
+host as well.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+import operator
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -49,9 +57,12 @@ from favae_tpu_torch.ops.int8_matmul import (DEFAULT_SMS, check_cuda,
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"decode_step": 0}
 
+Position = Union[int, torch.Tensor]   # a Python int or a 0-dim int tensor
+
 G = 8                # rows of one work item
 DIM_HEAD = 64        # head width csrc/decode_step.cu is written for
 EPS = 1e-5
+NEG_INF = -1e9       # the causal bias of a slot past the position
 MAX_SLOTS = 4096     # kv slots whose scores fit the kernel's shared memory
 
 # csrc/decode_step.cu
@@ -65,6 +76,7 @@ SMEM_ALLOWED = 160 * 1024  # dynamic shared memory of a block
 SMEM_SM = 233472     # shared memory of an SM; a block reserves 1 KB of it
 
 _GRIDS: Dict[tuple, int] = {}
+_ERRORS: Dict[int, torch.Tensor] = {}   # a device's error word, () int32
 
 
 def plan(cfg: GPTConfig, sms: int = DEFAULT_SMS) -> dict:
@@ -225,19 +237,32 @@ def _attend_plain(q, kv, bias):
     return og.bfloat16().reshape(q.shape[0], -1)
 
 
-def decode_step_fused_plain(x, pos: int, caches, cross_kv, cross_bias,
+def decode_step_fused_plain(x, pos: Position, caches, cross_kv, cross_bias,
                             rel_rows, fused, cfg: GPTConfig
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic in plain PyTorch, rounding where it rounds:
     xn to bf16 before every projection, q to bf16 for q.k, probabilities to
     bf16 for p.v, the attention output to bf16 before the out projection,
     kv_t to bf16 into the cache, which the attention reads after the write;
-    x in f32 throughout and to bf16 once at the end."""
+    x in f32 throughout and to bf16 once at the end.
+
+    With an int `pos` the attention takes the cache rows up to `pos`. With a
+    0-dim tensor it takes the whole cache, as the JAX wrapper does
+    (favae_tpu/ops/decode_step_kernel.py:355-358): slots past `pos + 1`
+    (the null is slot 0) get the causal bias NEG_INF and their rows are read
+    as zeros, and the row is written by `index_copy_`; no value reaches the
+    host."""
     heads, dh = cfg.n_head, cfg.dim_head
-    rows = x.shape[0]
+    rows, seq = x.shape[0], caches.shape[2]
     scale = dh ** -0.5
     fz = fused
     xs = x.float()
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        at = pos.reshape(1).long()
+        cols = torch.arange(seq + 1, device=x.device)
+        visible = (cols <= at + 1) | (cols == 0)               # (S + 1,)
+        causal = torch.where(visible, 0.0, NEG_INF)
 
     def project(v, wq, s):  # bf16-rounded rows times int8, scale after
         return (v.bfloat16().float() @ wq.float()) * s.float()
@@ -245,12 +270,19 @@ def decode_step_fused_plain(x, pos: int, caches, cross_kv, cross_bias,
     for l in range(cfg.n_layer):
         g = fz["norms"][l]
         xn = layer_norm_rows(xs, g[0], EPS).bfloat16()
-        caches[l, :, pos] = (xn.float() @ fz["wkv"][l].float()).to(caches.dtype)
+        kv_t = (xn.float() @ fz["wkv"][l].float()).to(caches.dtype)
         q = (project(xn, fz["wq_s"][l], fz["sq_s"][l]) * scale).bfloat16()
         null = fz["null_s"][l].to(caches.dtype).expand(rows, 1, dh)
-        kv = torch.cat([null, caches[l, :, : pos + 1]], dim=1)
-        og = _attend_plain(q.reshape(rows, heads, dh), kv,
-                           rel_rows[l][None, :, : pos + 2])
+        if on_device:
+            caches[l].index_copy_(1, at, kv_t[:, None])
+            kv = torch.where(visible[None, :, None],
+                             torch.cat([null, caches[l]], dim=1), 0.0)
+            bias = rel_rows[l][None] + causal
+        else:
+            caches[l, :, pos] = kv_t
+            kv = torch.cat([null, caches[l, :, : pos + 1]], dim=1)
+            bias = rel_rows[l][None, :, : pos + 2]
+        og = _attend_plain(q.reshape(rows, heads, dh), kv, bias)
         of = project(og, fz["wo_s"][l], fz["so_s"][l])
         xs = xs + layer_norm_rows(of, g[1], EPS)
 
@@ -271,7 +303,7 @@ def decode_step_fused_plain(x, pos: int, caches, cross_kv, cross_bias,
 def _library():
     lib = _build.library("decode_step")
     lib.favae_decode_step.argtypes = (
-        [ctypes.c_void_p] * 24 + [ctypes.c_int] * 12
+        [ctypes.c_void_p] * 26 + [ctypes.c_int] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.favae_decode_step.restype = ctypes.c_int
     lib.favae_decode_step_scratch.argtypes = [ctypes.c_int] * 8
@@ -314,16 +346,68 @@ PHASES = ("q+kv", "self-attn", "out", "x+=LN", "cross q", "cross-attn",
           "cross out", "x+=LN,", "fc1", "fc2", "x+=ffn")  # of one layer
 
 
-def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
-                      fused: Dict[str, torch.Tensor], cfg: GPTConfig,
+def _card(device) -> Optional[int]:
+    """The index of a CUDA device ("cuda" alone: the current one); None
+    for another device, which has no error word."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return (torch.cuda.current_device() if device.index is None
+            else device.index)
+
+
+def _error_word(device: torch.device) -> torch.Tensor:
+    """The device's error word, made at its first launch, which must not be
+    one that a CUDA graph captures (the word would live in the graph's
+    memory pool)."""
+    word = _ERRORS.get(_card(device))
+    if word is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_step_fused: the first launch on "
+                               f"{device} is being captured; launch once "
+                               "eagerly first")
+        word = _ERRORS[_card(device)] = torch.zeros((), dtype=torch.int32,
+                                                   device=device)
+    return word
+
+
+def position_errors(device) -> int:
+    """Launches on `device` given a position outside [0, S) since the last
+    call, each of which wrote nothing; sets the count back to 0. Reads the
+    device (a host sync): call it after a loop, outside any capture."""
+    word = _ERRORS.get(_card(device))
+    if word is None:
+        return 0
+    n = int(word.item())
+    if n:
+        word.zero_()
+    return n
+
+
+def check_positions(device) -> None:
+    """Raise if a launch on `device` was given a position outside [0, S)
+    since the last check."""
+    n = position_errors(device)
+    if n:
+        raise RuntimeError(f"decode_step_fused: {n} launch(es) on {device} "
+                           "were given a position outside [0, S) and wrote "
+                           "nothing")
+
+
+def decode_step_fused(x, pos: Position, caches, cross_kv, cross_bias,
+                      rel_rows, fused: Dict[str, torch.Tensor],
+                      cfg: GPTConfig,
                       phase_clock: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token step through all layers.
 
-    x (rows, d) bf16; pos, a Python int; caches (L, rows, S, dh) bf16, whose
-    row `pos` is WRITTEN IN PLACE (rows beyond `pos` are neither read nor
-    trusted); cross_kv (L, rows, M, dh) bf16 with the null kv in slot 0;
-    cross_bias (rows, M) f32 (0 / -1e9); rel_rows (L, H, S+1) f32, this
+    x (rows, d) bf16; pos, a 0-dim int64 or int32 tensor on x's device, or a
+    Python int (checked here and placed in such a tensor); caches (L, rows,
+    S, dh) bf16, whose row `pos` is WRITTEN IN PLACE (rows beyond `pos` are
+    neither read nor trusted); a tensor `pos` outside [0, S) makes the
+    launch count an error (`check_positions`) and write nothing, neither the
+    cache row nor x_new; cross_kv (L, rows, M, dh) bf16 with the null kv in
+    slot 0; cross_bias (rows, M) f32 (0 / -1e9); rel_rows (L, H, S+1) f32, this
     position's rel-pos bias row per layer with column 0 the null's; `fused`
     from `prepare_fused_decode`. `phase_clock`, a CUDA int64 tensor of
     2 (1 + 11 L) entries, zero before the call, receives device times in
@@ -331,29 +415,37 @@ def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
     after each phase (`PHASES`, layer by layer), then the latest time a
     block reached each of those barriers. Returns (x_new, caches), `caches`
     being the tensor that was passed in."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_step_fused: unsupported device {x.device}")
+    seq = caches.shape[2]
+    if isinstance(pos, torch.Tensor):
+        if (pos.dim() != 0 or pos.device != x.device
+                or pos.dtype not in (torch.int32, torch.int64)):
+            raise ValueError("decode_step_fused: pos must be a 0-dim int32 "
+                             f"or int64 tensor on {x.device}, got "
+                             f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
+    elif not 0 <= operator.index(pos) < seq:
+        raise ValueError(f"decode_step_fused: pos {pos} outside [0, {seq})")
     if x.device.type == "cpu":
         return decode_step_fused_plain(x, pos, caches, cross_kv, cross_bias,
                                        rel_rows, fused, cfg)
-    if x.device.type != "cuda":
-        raise ValueError(f"decode_step_fused: unsupported device {x.device}")
     rows, d = x.shape
     n_layer, heads, dh = cfg.n_layer, cfg.n_head, cfg.dim_head
     if not supports(cfg, rows):
         raise ValueError(f"decode_step_fused: config {cfg} with {rows} rows "
                          "is outside what the kernel takes (see supports)")
-    seq, m_cross = caches.shape[2], cross_kv.shape[2]
+    m_cross = cross_kv.shape[2]
     inner, f = heads * dh, 4 * d
     if not (caches.shape == (n_layer, rows, seq, dh)
             and cross_kv.shape == (n_layer, rows, m_cross, dh)
             and cross_bias.shape == (rows, m_cross)
             and rel_rows.shape == (n_layer, heads, seq + 1)
-            and d == cfg.n_embed and 0 <= pos < seq
-            and max(seq + 1, m_cross) <= MAX_SLOTS):
+            and d == cfg.n_embed and max(seq + 1, m_cross) <= MAX_SLOTS):
         raise ValueError(
             f"decode_step_fused: x {tuple(x.shape)}, caches "
             f"{tuple(caches.shape)}, cross_kv {tuple(cross_kv.shape)}, "
             f"cross_bias {tuple(cross_bias.shape)}, rel_rows "
-            f"{tuple(rel_rows.shape)}, pos {pos} do not fit together")
+            f"{tuple(rel_rows.shape)} do not fit together")
     expect = {"wq_s": (d, inner), "wo_s": (inner, d), "wq_c": (d, inner),
               "wo_c": (inner, d), "w1q": (d, f), "w2q": (f, d), "wkv": (d, dh),
               "sq_s": (1, inner), "so_s": (1, d), "sq_c": (1, inner),
@@ -379,6 +471,9 @@ def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
     kcs = (p["kc_q"], p["kc_o"], p["kc_1"], p["kc_2"])
     lib = _library()
     with torch.cuda.device(x.device):
+        error = _error_word(x.device)
+        pos = (pos.long() if isinstance(pos, torch.Tensor) else
+               torch.full((), pos, dtype=torch.int64, device=x.device))
         key = (x.device.index, d, seq, m_cross, p["kc_q"])
         if key not in _GRIDS:
             _GRIDS[key] = lib.favae_decode_step_grid(d, seq, m_cross,
@@ -397,8 +492,8 @@ def decode_step_fused(x, pos: int, caches, cross_kv, cross_bias, rel_rows,
             *[fused[n].data_ptr() for n in _POINTER_ORDER],
             x_new.data_ptr(), scratch.data_ptr(),
             None if phase_clock is None else phase_clock.data_ptr(),
-            n_layer, rows, d, heads,
-            seq, m_cross, f, pos, *kcs, EPS, grid,
+            pos.data_ptr(), error.data_ptr(), n_layer, rows, d, heads,
+            seq, m_cross, f, *kcs, EPS, grid,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_step_fused: cooperative launch failed "

@@ -26,6 +26,7 @@ from favae_tpu_torch.convert import (clip_text_from_jax, from_jax_params,
                                      gpt_from_jax)
 from favae_tpu_torch.models.txt_cond import build_cat
 from favae_tpu_torch.ops import decode_step_kernel as dk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 AGREEMENT = 0.9
 

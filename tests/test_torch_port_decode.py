@@ -32,6 +32,7 @@ from favae_tpu_torch.convert import gpt_from_jax
 from favae_tpu_torch.models import decode_engine as tengine
 from favae_tpu_torch.models import gpt as tgpt
 from favae_tpu_torch.ops.decode_step_kernel import prepare_fused_decode
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(vocab_size=64, n_layer=2, n_embed=64, n_head=4, dim_head=16,
              n_cond_embed=32, image_encoded_dim=4, max_text_len=7, dropout=0.0)
