@@ -14,17 +14,21 @@ device (`train/favae_step.py::to_unit_range`) with the reference's op
 sequence. `with_clip_image` adds CLIP's view of each captioned image
 (bicubic 224 x 224, CLIP's mean and std). `shard_index` / `shard_count`
 give a rank of a data-parallel run its shard of every epoch, as the JAX
-loader gives a host its shard.
+loader gives a host its shard. `STATS` counts the loader's hand-overs, and
+the consumer's wait for a batch is the span `data.wait`.
 """
 
 from __future__ import annotations
 
 import multiprocessing
 import pickle
+import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Iterator, List
+from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from favae_tpu_torch.profiling import span
 
 try:
     from PIL import Image, ImageFile
@@ -37,6 +41,12 @@ MEAN = np.asarray([0.5, 0.5, 0.5], np.float32)
 STD = np.asarray([0.5, 0.5, 0.5], np.float32)
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+# every `DataLoader`'s counters, kept on the consumer's thread: batches
+# handed over, those whose decode had finished when asked for, host seconds
+# waited for them (`data.wait`) and the seconds their workers took to
+# decode them
+STATS = {"batches": 0, "ready": 0, "wait_s": 0.0, "decode_s": 0.0}
 
 
 def load_manifest(path: str) -> List:
@@ -146,8 +156,10 @@ def _proc_init(ds) -> None:
     _WORKER_DS = ds
 
 
-def _proc_fetch(indices) -> List:
-    return [_WORKER_DS.get(int(i)) for i in indices]
+def _proc_fetch(indices) -> Tuple[List, float]:
+    t0 = time.perf_counter()
+    items = [_WORKER_DS.get(int(i)) for i in indices]
+    return items, time.perf_counter() - t0
 
 
 class DataLoader:
@@ -241,19 +253,34 @@ class DataLoader:
             return
 
         def fetch(b):
-            return self.collate([self.ds.get(int(i)) for i in indices(b)])
+            t0 = time.perf_counter()
+            out = self.collate([self.ds.get(int(i)) for i in indices(b)])
+            return out, time.perf_counter() - t0
 
         with ThreadPoolExecutor(self.num_workers) as pool:
             yield from self._run(pool, lambda b: (fetch, b), n_batches,
                                  lambda out: out)
 
     def _run(self, pool, job, n_batches, finish) -> Iterator:
-        """Batches in order, `PREFETCH` + 1 of them submitted ahead."""
-        pending = [pool.submit(*job(b))
-                   for b in range(min(self.PREFETCH + 1, n_batches))]
-        next_submit = len(pending)
+        """Batches in order, `PREFETCH` + 1 of them submitted ahead. A job
+        returns its result and the seconds its worker took; both are
+        counted here, on the consumer's thread."""
+        pending, next_submit = [], 0
         for _ in range(n_batches):
-            out = finish(pending.pop(0).result())
+            t0 = time.perf_counter()
+            with span("data.wait"):
+                if next_submit == 0:  # the epoch's first submissions
+                    pending = [pool.submit(*job(b)) for b in
+                               range(min(self.PREFETCH + 1, n_batches))]
+                    next_submit = len(pending)
+                fut = pending.pop(0)
+                ready = fut.done()
+                res, decode_s = fut.result()
+            STATS["wait_s"] += time.perf_counter() - t0
+            STATS["batches"] += 1
+            STATS["ready"] += ready
+            STATS["decode_s"] += decode_s
+            out = finish(res)
             if next_submit < n_batches:
                 pending.append(pool.submit(*job(next_submit)))
                 next_submit += 1

@@ -14,13 +14,25 @@ Kernel launch counts (`LAUNCHES` of the kernel modules) are counted on the
 host where a wrapper launches, so a capture would count once and a replay
 not at all: the counts taken during the capture are undone and added again
 after each replay, and stay the launches that ran on the card.
+
+`STATS` counts the graphs captured, their replays and the host seconds the
+captures took. The warm-up, the capture and each replay (with its `after`)
+are the spans `graphs.first`, `graphs.capture` and `graphs.replay`
+(`profiling.span`), none of them inside the captured body. A replay has a
+span of its own: one span over all of a request's replays made a
+`torch.profiler` trace of the request take minutes to reduce on the card.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from favae_tpu_torch.profiling import span
+
+STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
 def launch_counts() -> List[Dict[str, int]]:
@@ -69,25 +81,32 @@ def run_steps(step: Callable[[], None], n: int, device: torch.device,
                          f"generator on {generator.device}")
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        step()
-    current.wait_stream(side)
-    if after is not None:
-        after(0)
+    with span("graphs.first"):
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            step()
+        current.wait_stream(side)
+        if after is not None:
+            after(0)
     if n == 1:
         return
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
+    t0 = time.perf_counter()
+    with span("graphs.capture"):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
 
-    def capture():
-        with torch.cuda.graph(graph, stream=side):
-            step()
+        def capture():
+            with torch.cuda.graph(graph, stream=side):
+                step()
 
-    per_replay = counts_of(capture)
+        per_replay = counts_of(capture)
+    STATS["captures"] += 1
+    STATS["capture_s"] += time.perf_counter() - t0
     for i in range(1, n):
-        graph.replay()
-        add_counts(per_replay)
-        if after is not None:
-            after(i)
+        with span("graphs.replay"):
+            graph.replay()
+            add_counts(per_replay)
+            if after is not None:
+                after(i)
+        STATS["replays"] += 1

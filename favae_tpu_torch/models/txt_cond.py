@@ -4,7 +4,9 @@ favae_tpu/models/txt_cond.py; reference: models/txt_cond_transformer.py:
 mode). Training: the teacher-forced CE (`gpt_loss`, and
 `gpt_loss_from_latents` over cached frozen-tower outputs); the frozen towers
 run without a graph (`torch.no_grad`, their parameters frozen), so their
-outputs can enter a training graph.
+outputs can enter a training graph. `sample_images`' stages run inside the
+spans `cat.clip`, `cat.prepare`, `cat.tokens` and `cat.decode`
+(`profiling.span`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from favae_tpu_torch.models.gpt import GPT
 from favae_tpu_torch.models.vqgan import VQGANFCM, build_model
 from favae_tpu_torch.ops.decode_step_kernel import (prepare_fused_decode,
                                                     supports)
+from favae_tpu_torch.profiling import span
 
 
 @dataclasses.dataclass
@@ -138,31 +141,35 @@ class CATModel:
         cs = self.cfg.cond_scale if cond_scale is None else cond_scale
         mark = _Marks(self.device, timings is not None)
         mark("start")
-        embeds, mask = self.encode_text_ids(text_ids)
+        with span("cat.clip"):
+            embeds, mask = self.encode_text_ids(text_ids)
         mark("clip")
         b = text_ids.shape[0]
         kw = dict(generator=generator, temperature=temperature, top_k=top_k,
                   top_p=top_p, cond_scale=cs, gumbel_noise=gumbel_noise,
                   on_token=lambda pos: mark("token"))
-        if quantized:
-            route, b_pad = self.serving_route(b, quantized)
-            if route == "fused":
-                if b_pad != b:
-                    embeds = torch.cat(
-                        [embeds, embeds[:1].expand(b_pad - b, -1, -1)], 0)
-                    mask = torch.cat(
-                        [mask, mask[:1].expand(b_pad - b, -1)], 0)
-                kw["fused"] = prepare_fused_decode(self.gpt, self.cfg.gpt)
+        with span("cat.prepare"):
+            if quantized:
+                route, b_pad = self.serving_route(b, quantized)
+                if route == "fused":
+                    if b_pad != b:
+                        embeds = torch.cat(
+                            [embeds, embeds[:1].expand(b_pad - b, -1, -1)], 0)
+                        mask = torch.cat(
+                            [mask, mask[:1].expand(b_pad - b, -1)], 0)
+                    kw["fused"] = prepare_fused_decode(self.gpt, self.cfg.gpt)
+                else:
+                    kw["qparams"] = quantize_decode_params(self.gpt)
+        mark("prepare")
+        with span("cat.tokens"):
+            if quantized:
+                grid = sample_tokens(self.cfg.gpt, self.gpt, embeds, mask,
+                                     dtype=self.gpt.dtype, **kw)[:b]
             else:
-                kw["qparams"] = quantize_decode_params(self.gpt)
-            mark("prepare")
-            grid = sample_tokens(self.cfg.gpt, self.gpt, embeds, mask,
-                                 dtype=self.gpt.dtype, **kw)[:b]
-        else:
-            mark("prepare")
-            grid = self.gpt.sample(embeds, mask, **kw)
+                grid = self.gpt.sample(embeds, mask, **kw)
         mark("tokens")
-        imgs = self.favae.decode_code(grid)
+        with span("cat.decode"):
+            imgs = self.favae.decode_code(grid)
         mark("decode")
         if timings is not None:
             timings.update(mark.report())

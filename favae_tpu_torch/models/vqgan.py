@@ -7,7 +7,9 @@ Public methods take and return NHWC tensors like the JAX package (images in
 [-1, 1]); inside, activations are NCHW in channels_last, so the conversion at
 the boundary is a view. As in the JAX package the train step calls
 `generate` and `discriminate` separately, to split the loss heads at the
-reconstruction (see favae_tpu_torch.train.favae_step).
+reconstruction (see favae_tpu_torch.train.favae_step). The encoder, the
+quantizer and the decoder run inside the spans `codec.encode`,
+`codec.quantize` and `codec.decode` (`profiling.span`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from favae_tpu_torch.models.quantizer import (CodebookState, QuantizerDraws,
                                               VectorQuantize,
                                               init_codebook_state)
 from favae_tpu_torch.ops.gaussian import gaussian_blur_nhwc
+from favae_tpu_torch.profiling import span
 
 
 def _nchw(x):
@@ -63,14 +66,17 @@ class VQGANFCM(nn.Module):
         """x (B, H, W, 3) in [-1, 1] -> (z_q (B, h, w, dim) f32,
         indices (B, h, w) int64, 4 encoder taps NHWC)
         (reference: models/vqgan_fcm.py:112-118)."""
-        z, taps = self.encoder(_nchw(x))
-        z_q, idx, _, _ = self.quantizer(z, cb_state)
+        with span("codec.encode"):
+            z, taps = self.encoder(_nchw(x))
+        with span("codec.quantize"):
+            z_q, idx, _, _ = self.quantizer(z, cb_state)
         return _nhwc(z_q), idx, [_nhwc(t) for t in taps]
 
     def decode(self, z):
         """z (B, h, w, dim) -> (x_recon (B, H, W, 3) f32, 4 decoder taps,
         h_pre), all NHWC (reference: models/vqgan_fcm.py:120-122)."""
-        x, taps, h_pre = self.decoder(_nchw(z))
+        with span("codec.decode"):
+            x, taps, h_pre = self.decoder(_nchw(z))
         return _nhwc(x), [_nhwc(t) for t in taps], _nhwc(h_pre)
 
     def generate(self, x, cb_state: Optional[CodebookState] = None, *,
@@ -83,10 +89,13 @@ class VQGANFCM(nn.Module):
         enc_feats, dec_feats, h_pre (NHWC), loss_q, indices and cb_state,
         the new codebook state (the module's buffers are not written).
         `draws` are the quantizer's random draws (`draw_quantizer`)."""
-        z, enc = self.encoder(_nchw(x), blur=not inference)
-        z_q, idx, loss_q, state = self.quantizer(z, cb_state, train=train,
-                                                 draws=draws)
-        x_rec, dec, h_pre = self.decoder(z_q, blur=not inference)
+        with span("codec.encode"):
+            z, enc = self.encoder(_nchw(x), blur=not inference)
+        with span("codec.quantize"):
+            z_q, idx, loss_q, state = self.quantizer(
+                z, cb_state, train=train, draws=draws)
+        with span("codec.decode"):
+            x_rec, dec, h_pre = self.decoder(z_q, blur=not inference)
         enc, dec = [_nhwc(t) for t in enc], [_nhwc(t) for t in dec]
         if self.cfg.dsl_mode == DSL_PAIR and train and not inference:
             enc, dec = self.blur_taps_pairwise(enc, dec)
@@ -124,7 +133,9 @@ class VQGANFCM(nn.Module):
     def decode_code(self, indices, cb_state: Optional[CodebookState] = None):
         """Token grid (B, h, w) -> image (B, H, W, 3)
         (reference: models/txt_cond_transformer.py:160-168)."""
-        x, _, _ = self.decoder(self.quantizer.decode_indices(indices, cb_state))
+        with span("codec.decode"):
+            x, _, _ = self.decoder(
+                self.quantizer.decode_indices(indices, cb_state))
         return _nhwc(x)
 
     @torch.inference_mode()

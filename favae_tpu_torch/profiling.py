@@ -1,20 +1,61 @@
-"""Device time by kernel group from a `torch.profiler` run on the card.
+"""The port's spans and counters, and device time by kernel group from a
+`torch.profiler` run on the card.
 
-Shared by `cli/profile_recon.py` and the trainers' profiler window
-(`ProfileWindow`): sums the device time of every CUDA event by kernel
-name, folds the names into groups and reports the busy share of the
+`span(name)` marks a stretch of host work (the loader's wait, the codec's
+stages, the token loop's set-up and replays) as a `favae:<name>` range on a
+running profiler's clock; with none running it costs a flag check.
+`counters()` is one flat snapshot of every counter the port keeps.
+
+`summarize`, shared by `cli/profile_recon.py` and the trainers' profiler
+window (`ProfileWindow`), sums the device time of every CUDA event by
+kernel name, folds the names into groups and reports the busy share of the
 host-clock window. `StepClock` times the trainers' steps.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import time
 from typing import Dict, List, Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range `favae:<name>` while a `torch.profiler` runs, nested in
+    the ranges open around it; with no profiler running, one shared no-op
+    context. The range is recorded at operator scope (`_RecordFunctionFast`)
+    and not as a user annotation (`record_function`), which the profiler
+    would also draw on the device's track across the kernels it encloses,
+    where a trace reader counts it as busy time. Never open one inside a
+    body captured into a CUDA graph: a replay does not run it."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast("favae:" + name)
+
+
+def counters() -> Dict[str, float]:
+    """Every counter the port keeps, as `{"group.name": number}`:
+    `launches.<kernel>` (the kernel modules' `LAUNCHES`, exact across graph
+    replays), `collectives.*` (`parallel.mesh.STATS`), `data.*`
+    (`data.pipeline.STATS`) and `graphs.*` (`graphs.STATS`). The counters
+    are plain module dicts, always on: subtract two snapshots."""
+    from favae_tpu_torch import graphs
+    from favae_tpu_torch.data import pipeline
+    from favae_tpu_torch.parallel import mesh
+    out: Dict[str, float] = {}
+    for launches in graphs.launch_counts():
+        out.update((f"launches.{k}", v) for k, v in launches.items())
+    for group, stats in (("collectives", mesh.STATS),
+                         ("data", pipeline.STATS), ("graphs", graphs.STATS)):
+        out.update((f"{group}.{k}", v) for k, v in stats.items())
+    return out
+
 
 # kernel-name fragments -> group; the first match wins (the optimizer's
 # `multi_tensor_apply_kernel` before the GroupNorm's `_apply_kernel`)
