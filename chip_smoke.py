@@ -26,6 +26,10 @@ Phases (any failure exits non-zero):
    scalar (the same bits), a position outside the cache counted in the
    error word, raised and nothing written, and the 256 steps replayed from
    one captured step against the same step called eagerly, bit for bit);
+   `ln_fused`'s kernel (row 8) against its plain op sequence in every form
+   at gpt2_medium's two widths in bf16 and f32, timed at the token step's
+   attention boundary (8 x 1536) and feed-forward middle (8 x 6144) beside
+   the plain sequence eager and graphed;
 4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
@@ -52,8 +56,9 @@ Phases (any failure exits non-zero):
    `--quantized --gpt_name gpt2_large` on the int8 FFN kernel; every token
    step runs as a CUDA graph with launches counted per replay), counts
    zeroed before and read after each, ms a token beside the card's name
-   and power limit; `GPT.sample` at gpt2_medium through the graph, one
-   seed twice and another once, and the fused route replayed against the
+   and power limit (the exact runs 1 + 4 a layer `add_ln` launches a
+   token); `GPT.sample` at gpt2_medium through the graph, one seed twice
+   and another once, and the fused route replayed against the
    same step called eagerly (the same tokens and logits, bit for bit);
    `sample_tokens` at gpt2_large through the graph on its exact route (the
    FFN-only route's yardstick) and its FFN-only route, one seed twice and
@@ -1241,6 +1246,117 @@ def check_decode_step(gpt_name="gpt2_medium", rows=8, m_cross=78, seed=11,
     return row
 
 
+def add_ln_a_token(cfg):
+    """`ln_fused` launches of one `GPT.sample` token step: the embedding's
+    boundary into the first layer, then four a layer (the two attention
+    boundaries, the feed-forward's middle, its boundary into the next layer
+    or `final_norm`)."""
+    return 1 + 4 * cfg.n_layer
+
+
+def add_ln_cases(d, dtype, seed):
+    """Every form of `ln_fused` at width d, 8 rows, inputs as the token step
+    gives them: {form: (kernel call, plain call)}."""
+    import torch
+    from favae_tpu_torch.ops import ln_fused as lf
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(
+            np.float32)).cuda()
+
+    h32 = t(8, 1, d, scale=3.0)
+    h, x = h32.to(dtype), t(8, 1, d).to(dtype)
+    g_out, g_next = 1 + t(d, scale=0.2), 1 + t(d, scale=0.2)
+    args = {"boundary": (h, x, g_out, g_next, dtype),
+            "residual": (h, x, None, g_next, dtype),
+            "init": (h32, None, g_out, g_next, dtype),
+            "final": (h, x, None, g_next, torch.float32)}
+    cases = {form: (lambda a=a: lf.add_ln(*a), lambda a=a: lf.add_ln_plain(*a))
+             for form, a in args.items()}
+    cases["gelu"] = (lambda: (lf.gelu_ln(h, g_next, dtype),),
+                     lambda: (lf.gelu_ln_plain(h, g_next, dtype),))
+    return cases, h, x, g_out, g_next
+
+
+def rounding_ratio(got, want):
+    """max |got - want| / (eps (|want| + 2 x its row's largest)), eps the
+    stored dtype's: at most 1 is within a rounding of the stored dtype, of
+    the element and of its row's largest for each of the (up to two)
+    LayerNorms of the chain, whose f32 sums run in another order (a
+    residual element rounded the other way moves the row's statistics by
+    that much). Measured on an H100 against one row's largest alone: up to
+    0.81 in bf16 outputs, 1.013 in f32 ones (two LayerNorms at 6144)."""
+    import torch
+    eps = torch.finfo(want.dtype).eps
+    got, want = got.float(), want.float()
+    row = want.abs().amax(-1, keepdim=True)
+    return ((got - want).abs() / (eps * (want.abs() + 2 * row))).max().item()
+
+
+def check_add_ln(seed=40):
+    """Row 8: `ln_fused`'s kernel against its plain op sequence on the card,
+    every form at both gpt2_medium widths in bf16 and f32: one launch a
+    call, the plain version's dtypes and shapes, within a rounding of the
+    stored dtype (`rounding_ratio` <= 1), the same bits twice; timed three
+    ways beside the plain sequence (`plain_ms` eager, `plain_device_ms` in
+    a graph, as the token graph ran it before the kernel) at the forms the
+    token step runs most: the attention boundary at 8 x 1536 and the
+    feed-forward's middle at 8 x 6144."""
+    import torch
+    from favae_tpu_torch.ops import ln_fused as lf
+    rows, worst, bad = {}, {}, []
+    with torch.inference_mode():
+        for i, (d, dtype) in enumerate(
+                (d, dt) for d in (1536, 6144)
+                for dt in (torch.bfloat16, torch.float32)):
+            cases = add_ln_cases(d, dtype, seed + i)[0]
+            for form, (kernel, plain) in cases.items():
+                before = lf.LAUNCHES["add_ln"]
+                got = kernel()
+                launched = lf.LAUNCHES["add_ln"] - before
+                want, again = plain(), kernel()
+                ratio = max(rounding_ratio(g, w) for g, w in zip(got, want))
+                key = f"{form} {str(dtype)[6:]} d={d}"
+                worst[key] = ratio
+                if not (launched == 1 and ratio <= 1
+                        and all(g.dtype == w.dtype and g.shape == w.shape
+                                and torch.equal(g, a)
+                                for g, w, a in zip(got, want, again))):
+                    bad.append((key, launched, ratio))
+        for d, form in ((1536, "boundary"), (6144, "gelu")):
+            cases, h, x, g_out, g_next = add_ln_cases(d, torch.bfloat16, seed)
+            kernel, plain = cases[form]
+            row = {"shape": f"rows=8 d={d} {form} bf16",
+                   "max_rounding_ratio": worst[f"{form} bfloat16 d={d}"],
+                   "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+                   "plain_ms": time_ms(plain),
+                   "plain_device_ms": device_ms(plain),
+                   "library_ms": None}
+            out = kernel()
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes(h, g_next, *out) + (nbytes(x, g_out)
+                                           if form == "boundary" else 0), 0)
+            rows[form] = row
+            log("add_ln", json.dumps(row))
+    log("add_ln rounding ratios", json.dumps(worst))
+    if bad:
+        raise AssertionError(f"add_ln against its plain version (form, "
+                             f"launches, rounding ratio): {bad}")
+    return rows
+
+
+def add_ln_kernel_row(rows, launches):
+    """The `kernels` line's entry for row 8, with the launches of the serve
+    slice's exact run."""
+    return {"name": "add_ln", "route": "triton",
+            "source": "favae_tpu_torch/ops/ln_fused.py",
+            "replaces": "the token step's LayerNorm chains, which XLA fuses "
+                        "(favae_tpu/models/gpt.py)",
+            "launches": launches, "on_main_path": True,
+            **rows["boundary"], "gelu": rows["gelu"]}
+
+
 def int8_kernel_checks():
     """matmul_int8 at the four CAT projection shapes, ffn_block_int8 at
     both widths and 2, 6, 8 and 16 rows (and on two streams at once),
@@ -1695,13 +1811,15 @@ SERVE_ARGS = ["--prompt", "a smiling woman with glasses",
               "--prompt", "an old man with a beard", "--n", "2",
               "--top_k", "500", "--top_p", "0.95", "--cond_scale", "3",
               "--out", str(ROOT / "output" / "chip_smoke_serve.npz")]
-# (name, extra flags, expected launches of decode_step and ffn_int8)
-SERVE_RUNS = (("exact", [], 0, 0),
-              ("fused", ["--quantized"], 256, 0),
+# (name, extra flags, expected launches of decode_step, ffn_int8 and
+# add_ln: 1 + 4 a layer a token on the exact route, add_ln_a_token)
+SERVE_RUNS = (("exact", [], 0, 0, (1 + 4 * 24) * 256),
+              ("fused", ["--quantized"], 256, 0, 0),
               ("ffn_int8", ["--quantized", "--gpt_name", "gpt2_large"],
-               0, 36 * 256),
+               0, 36 * 256, 0),
               # the yardstick of the FFN-only route: the same model, exact
-              ("exact_large", ["--gpt_name", "gpt2_large"], 0, 0))
+              ("exact_large", ["--gpt_name", "gpt2_large"], 0, 0,
+               (1 + 4 * 36) * 256))
 # serve cross-check bounds, card against CPU at gpt2_medium width, 2 layers,
 # 4x4 tokens, on CFG logits of up to 7.7. f32 (TF32 off): the two differ by
 # summation order only (5.7e-6 measured on an H100). bf16 routes: both sides
@@ -1733,6 +1851,12 @@ def int8_counts():
             int8_matmul.LAUNCHES)
 
 
+def serve_counts():
+    """The launch counts of the serving kernels: the int8 ones and add_ln."""
+    from favae_tpu_torch.ops import ln_fused
+    return (*int8_counts(), ln_fused.LAUNCHES)
+
+
 def serve_slice():
     """`cli.generate` at cat_celebahq through its three engines, counts
     zeroed just before each run and read just after."""
@@ -1743,8 +1867,8 @@ def serve_slice():
     log(f"tokenizer word pattern compiled with: {word_pattern()[1]}")
     (ROOT / "output").mkdir(exist_ok=True)
     runs, launches = {}, {}
-    for name, extra, want_step, want_ffn in SERVE_RUNS:
-        for counts in (vq.LAUNCHES, gn.LAUNCHES, *int8_counts()):
+    for name, extra, want_step, want_ffn, want_ln in SERVE_RUNS:
+        for counts in (vq.LAUNCHES, gn.LAUNCHES, *serve_counts()):
             for k in counts:
                 counts[k] = 0
         torch.cuda.empty_cache()
@@ -1753,7 +1877,7 @@ def serve_slice():
         out = generate.main(SERVE_ARGS + extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: v for counts in (gn.LAUNCHES, *int8_counts())
+        got = {k: v for counts in (gn.LAUNCHES, *serve_counts())
                for k, v in counts.items()}
         imgs, toks = out["images"], out["tokens"]
         res = {"route": out["route"], "launches": got, "card": nvidia_smi(),
@@ -1773,18 +1897,19 @@ def serve_slice():
                 and res["finite"] and toks.shape == (4, 16, 16)
                 and 0 <= toks.min() and toks.max() < 1024):
             raise AssertionError(f"serve {name}: bad images or tokens")
-        if (got["decode_step"], got["ffn_int8"], got["matmul_int8"]) != (
-                want_step, want_ffn, 0):
+        if (got["decode_step"], got["ffn_int8"], got["matmul_int8"],
+                got["add_ln"]) != (want_step, want_ffn, 0, want_ln):
             raise AssertionError(
                 f"serve {name}: launches {got}, expected decode_step "
-                f"{want_step}, ffn_int8 {want_ffn}, matmul_int8 0")
+                f"{want_step}, ffn_int8 {want_ffn}, matmul_int8 0, add_ln "
+                f"{want_ln}")
         if not (got["gn_stats"] and got["gn_stats"] == got["gn_apply"]):
             raise AssertionError(f"serve {name}: the FA-VAE decode launched "
                                  f"GroupNorm kernels {got}")
         runs[name], launches[name] = res, got
     return runs, {"decode_step": launches["fused"]["decode_step"],
                   "ffn_int8": launches["ffn_int8"]["ffn_int8"],
-                  "matmul_int8": 0}
+                  "matmul_int8": 0, "add_ln": launches["exact"]["add_ln"]}
 
 
 def timed_tokens(sample):
@@ -1820,10 +1945,11 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
     """At gpt2_medium (the serve slice's exact and fused routes), 8 CFG
     rows, seeded random weights and text embeddings, top-k 500, top-p 0.95,
     scale 3: `GPT.sample` through the CUDA graph of its token step with one
-    seed twice and another once (no hand-written kernel launched), a CPU
-    generator refused; then the fused route of `sample_tokens` through the
-    graph, 256 `decode_step` launches (`decode_replay` holds its kernel's
-    replays against eager calls)."""
+    seed twice and another once (`add_ln_a_token` launches of `ln_fused`'s
+    kernel a token, every replay counted, and no other hand-written
+    kernel), a CPU generator refused; then the fused route of
+    `sample_tokens` through the graph, 256 `decode_step` launches
+    (`decode_replay` holds its kernel's replays against eager calls)."""
     import torch
     from favae_tpu_torch import config as C
     from favae_tpu_torch.models.decode_engine import sample_tokens
@@ -1869,7 +1995,8 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
                                   and int(max(a.max(), tf.max())) < 1024)
     log("serve-sample-graph", json.dumps(out))
     want = {"decode_step": seq}
-    if (out["gpt_sample_graph"]["launches"] != {}
+    if (out["gpt_sample_graph"]["launches"]
+            != {"add_ln": add_ln_a_token(cfg) * seq}
             or out["fused_graph"]["launches"] != want
             or not (out["same_seed_same_tokens"]
                     and out["other_seed_other_tokens"]
@@ -2034,14 +2161,18 @@ def cat_train_slice(decode_gn):
     cached steps, no GroupNorm backward, no int8 kernel. A preview (global
     step 0 and after validation; `--img_steps` is 1000) adds one FA-VAE
     decode's `decode_gn` GroupNorm calls, two on the cached path (the
-    cached tokens' decode stands for the images). Each checkpoint is timed,
+    cached tokens' decode stands for the images), and one `GPT.sample`'s
+    `add_ln` launches. Each checkpoint is timed,
     read back and compared (`checking_saves`). Returns the runs and the
     full pipeline's launches a step."""
     import torch
+    from favae_tpu_torch import config as C
     from favae_tpu_torch.cli import train_cat
-    from favae_tpu_torch.graphs import launch_counts
-    from favae_tpu_torch.ops import gn, vq
+    from favae_tpu_torch.ops import gn, ln_fused, vq
     from favae_tpu_torch.train.cat_trainer import CATTrainer
+    # a preview samples once on the exact route: GPT.sample's token steps
+    gpt_cfg = C.gpt2_medium(vocab_size=1024)
+    per_sample_ln = add_ln_a_token(gpt_cfg) * gpt_cfg.image_encoded_dim ** 2
 
     def rows_1_4():
         torch.cuda.synchronize()
@@ -2094,7 +2225,8 @@ def cat_train_slice(decode_gn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = rows_1_4()
-        others = {k: v for c in launch_counts()[2:] for k, v in c.items()}
+        others = {k: v for c in int8_counts() for k, v in c.items()}
+        ln = ln_fused.LAUNCHES["add_ln"]
         hist = out["history"]
         losses = [h["loss_gpt"] for h in hist]
         res = {"start_epoch": out["start_epoch"], "steps": len(hist),
@@ -2147,12 +2279,14 @@ def cat_train_slice(decode_gn):
                 and per_step["gn_stats"] == per_step["gn_apply"] > 0
                 and launches == expect and steps == expect_steps
                 and got_previews == want_previews
+                and ln == len(previews) * per_sample_ln
                 and not any(launches[k] for k in ("gn_bwd_sums",
                                                   "gn_bwd_dx"))
                 and not any(others.values())):
             raise AssertionError(
                 f"cat train {name}: launches {launches} ({steps} in the "
-                f"steps), previews {got_previews} and {others}, expected "
+                f"steps), previews {got_previews}, add_ln {ln} and {others}, "
+                f"expected add_ln {per_sample_ln} a preview, "
                 f"{expect} ({expect_steps} in the steps) and previews "
                 f"{want_previews} of {decode_gn} GroupNorm calls a decode: "
                 f"rows 1-3 only, the same in each of {encodes} encodes, one "
@@ -3629,6 +3763,7 @@ def main():
         check_gn_bwd(key, 200 + i, groups)
     torch.cuda.empty_cache()
     int8_checks = int8_kernel_checks()
+    ln_rows = check_add_ln()
 
     phase_s["3_kernels"] = time.perf_counter() - t_phase
 
@@ -3767,6 +3902,7 @@ def main():
         vq_rows[0], gn_rows, census, bwd_rows, bwd_census,
         train["launches"], recon_launches, cat_step_launches)
         + int8_kernel_rows(int8_checks, serve_launches)
+        + [add_ln_kernel_row(ln_rows, serve_launches["add_ln"])]
         + phase9_kernel_rows(vq9, gn9, bwd9, launches9),
         "group_norm_act_per_batch": gn_total,
         "phase10_launches_rank0": dist10["launches_rank0"],

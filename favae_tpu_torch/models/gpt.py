@@ -17,7 +17,10 @@ The parameters are named as the reference's state_dict (`blocks.{i}.{0,1,2}`,
 positions is one token step that keeps its state in tensors updated in place
 (the position a 0-dim tensor, the per-layer KV caches written at it) and
 makes no host sync, so that on the card one CUDA graph of it serves every
-position (`graphs.run_steps`).
+position (`graphs.run_steps`). In that step each sublayer boundary (the
+out-norm, the residual add, the next LayerNorm) and the feed-forward's
+middle are one call of `ops/ln_fused.py`: one kernel launch on the card,
+the plain op sequence on the CPU (`CATBlock.decode`).
 
 Master weights are f32; projections run in `dtype` (bf16 by default) as the
 JAX package's Dense layers do. `sample` casts each weight once, not once a
@@ -58,6 +61,7 @@ from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
 from favae_tpu_torch.graphs import run_steps
+from favae_tpu_torch.ops import ln_fused
 from favae_tpu_torch.parallel.mesh import all_reduce_sum_grad, spans
 from favae_tpu_torch.parallel.sharding import (copy_to_tp, reduce_from_tp,
                                                tp_slice)
@@ -278,27 +282,29 @@ class MultiQueryAttention(nn.Module):
         """kv of a static context (the cross-attention cache)."""
         return self.to_kv(context)
 
-    def decode_step(self, x_t, kv_cache, pos: Union[int, torch.Tensor]):
-        """One causal self-attention step. x_t (b, 1, dim); kv_cache
+    def decode_step(self, x_n, kv_cache, pos: Union[int, torch.Tensor]):
+        """One causal self-attention step from x_n (b, 1, dim), this layer's
+        input already normalised by `self.norm` and cast to the compute
+        dtype (`ln_fused.add_ln` of the boundary before it); kv_cache
         (b, S, dim_head), whose row `pos` (a 0-dim int64 tensor on the
-        device, read there; an int is placed in one) is written in place and whose rows
-        beyond it are masked. Returns the attention output."""
+        device, read there; an int is placed in one) is written in place and
+        whose rows beyond it are masked. Returns to_out's projection summed
+        over tp, before its LayerNorm (the next boundary's)."""
         pos = torch.as_tensor(pos, device=kv_cache.device)
-        x_n = self.norm(x_t).to(self.dtype)
         q = self._q(x_n)
         kv_cache.index_copy_(1, pos.view(1), self.to_kv(x_n).to(kv_cache.dtype))
-        mask = (torch.arange(kv_cache.shape[1], device=x_t.device)
-                <= pos).expand(x_t.shape[0], -1)
+        mask = (torch.arange(kv_cache.shape[1], device=x_n.device)
+                <= pos).expand(x_n.shape[0], -1)
         out = self._attend(q, kv_cache, context_mask=mask,
                            rel_bias=self._rel_bias(1, kv_cache.shape[1] + 1,
                                                    row_offset=pos))
-        return self._out(out, x_t.dtype)
+        return reduce_from_tp(self.to_out[1](out), self.tp)
 
-    def cross_step(self, x_t, kv, context_mask):
-        """One cross-attention step against precomputed kv."""
-        x_n = self.norm(x_t).to(self.dtype)
+    def cross_step(self, x_n, kv, context_mask):
+        """One cross-attention step from the normalised x_n against
+        precomputed kv; to_out's projection as `decode_step`'s."""
         out = self._attend(self._q(x_n), kv, context_mask=context_mask)
-        return self._out(out, x_t.dtype)
+        return reduce_from_tp(self.to_out[1](out), self.tp)
 
 
 def split_layer_norm(h: torch.Tensor, width: int, tp) -> torch.Tensor:
@@ -329,17 +335,22 @@ class FeedForward(nn.Sequential):
         """The forward on this rank's slice of the 4x width: fc1's output
         columns, the middle LayerNorm's statistics summed over tp, fc2's
         partial product summed over tp."""
+        if not self.fold:
+            return self._split_from_normed(self[0](x).to(self.dtype)).to(
+                x.dtype)
         tp, width = self.tp, self[3].gamma.shape[0]
         gamma_mid = tp_slice(copy_to_tp(self[3].gamma, tp), 0, tp)
-        if self.fold:
-            x_n, g_in = self[0].parts(x)
-            h = self[1](copy_to_tp(x_n, tp), copy_to_tp(g_in, tp))
-            h = self[4](split_layer_norm(self[2](h), width, tp), gamma_mid)
-        else:
-            h = self[1](copy_to_tp(self[0](x).to(self.dtype), tp))
-            h = split_layer_norm(self[2](h), width, tp) * gamma_mid
-            h = self[4](h.to(self.dtype))
+        x_n, g_in = self[0].parts(x)
+        h = self[1](copy_to_tp(x_n, tp), copy_to_tp(g_in, tp))
+        h = self[4](split_layer_norm(self[2](h), width, tp), gamma_mid)
         return reduce_from_tp(h, tp).to(x.dtype)
+
+    def _split_from_normed(self, x_n):
+        tp, width = self.tp, self[3].gamma.shape[0]
+        gamma_mid = tp_slice(copy_to_tp(self[3].gamma, tp), 0, tp)
+        h = self[1](copy_to_tp(x_n, tp))
+        h = split_layer_norm(self[2](h), width, tp) * gamma_mid
+        return reduce_from_tp(self[4](h.to(self.dtype)), tp)
 
     def forward(self, x):
         if spans(self.tp):
@@ -351,6 +362,17 @@ class FeedForward(nn.Sequential):
         h = self[1](self[0](x).to(self.dtype))
         h = self[4](self[3](self[2](h)).to(self.dtype))
         return h.to(x.dtype)
+
+    def decode(self, x_n):
+        """The feed-forward of one token step from x_n, its input already
+        normalised by `self[0]` and cast to the compute dtype: fc1, GELU and
+        the middle LayerNorm (`ln_fused.gelu_ln`, or its statistics summed
+        over tp), fc2. Returns fc2's product summed over tp, before the
+        residual."""
+        if spans(self.tp):
+            return self._split_from_normed(x_n)
+        return self[4](ln_fused.gelu_ln(self[1](x_n), self[3].gamma,
+                                        self.dtype))
 
 
 class CATBlock(nn.ModuleList):
@@ -396,14 +418,23 @@ class CATBlock(nn.ModuleList):
                             keep_q=cq, keep_kv=ckv) + x
         return self.ff(x) + x
 
-    def decode(self, x, cache, cross_kv, context_mask,
-               pos: Union[int, torch.Tensor]):
-        """Incremental step: x (b, 1, dim); cache (b, S, dh), written in
-        place at `pos` (an int or a 0-dim int64 tensor on the device);
-        cross_kv (b, m, dh)."""
-        x = self.self_attn.decode_step(x, cache, pos) + x
-        x = self.cross_attn.cross_step(x, cross_kv, context_mask) + x
-        return self.ff(x) + x
+    def decode(self, x, x_n, cache, cross_kv, context_mask,
+               pos: Union[int, torch.Tensor], gamma_next: torch.Tensor,
+               out_dtype: torch.dtype):
+        """Incremental step: x (b, 1, dim) the residual stream and x_n its
+        self-attention input, normalised (`decode_step`); cache (b, S, dh),
+        written in place at `pos` (an int or a 0-dim int64 tensor on the
+        device); cross_kv (b, m, dh). Returns (x after the layer, x
+        normalised by `gamma_next`, the next LayerNorm's, in `out_dtype`).
+        Each sublayer boundary (its out-norm, the residual add, the next
+        sublayer's norm) is one `ln_fused.add_ln` call: its inputs are
+        summed over tp before it, so every rank computes the same."""
+        sa, ca, ff = self
+        x, x_n = ln_fused.add_ln(sa.decode_step(x_n, cache, pos), x,
+                                 sa.to_out[2].gamma, ca.norm.gamma, ca.dtype)
+        x, x_n = ln_fused.add_ln(ca.cross_step(x_n, cross_kv, context_mask),
+                                 x, ca.to_out[2].gamma, ff[0].gamma, ff.dtype)
+        return ln_fused.add_ln(ff.decode(x_n), x, None, gamma_next, out_dtype)
 
 
 class GPT(nn.Module):
@@ -554,8 +585,16 @@ class GPT(nn.Module):
         Under a tp group of more than one rank the step holds collectives,
         which a graph does not capture: there the same step runs eagerly,
         token by token, on the card, still with no host sync, and a CPU
-        generator raises there too. On the CPU the step runs eagerly."""
+        generator raises there too. On the CPU the step runs eagerly.
+        A GPT built with `fold_ln_scale` raises: the step does not fold the
+        LayerNorms' gammas into the weights as the JAX package's decode
+        does; sample from a GPT without it, which takes the same
+        parameters."""
         c = self.cfg
+        if c.fold_ln_scale:
+            raise ValueError("GPT.sample does not fold the LayerNorm scales "
+                             "(fold_ln_scale): load the same parameters "
+                             "into a GPT without it to sample")
         b = text_token_embeds.shape[0]
         seq_len = c.image_encoded_dim ** 2
         dev = text_token_embeds.device
@@ -573,6 +612,10 @@ class GPT(nn.Module):
                                  dtype=self.dtype, device=dev)
             axial = self._axial_pos()
             start = self.start_token.expand(2 * b, -1)
+            # the LayerNorm each boundary ends in: every layer's
+            # self-attention norm, then final_norm (f32, for the logits)
+            norms = [blk.self_attn.norm.gamma for blk in self.blocks] + [
+                self.final_norm.gamma]
             state = dict(
                 pos=torch.zeros((), dtype=torch.long, device=dev),
                 tok_prev=torch.zeros((2 * b,), dtype=torch.long, device=dev),
@@ -584,11 +627,15 @@ class GPT(nn.Module):
                 at = pos.view(1)
                 prev = self.tok_emb(state["tok_prev"]) + axial.index_select(
                     0, (pos - 1).clamp(min=0).view(1))
-                x = torch.where(pos == 0, start, prev)
-                x = self.init_norm(x)[:, None, :].to(self.dtype)
+                x = torch.where(pos == 0, start, prev)[:, None, :]
+                x, x_n = ln_fused.add_ln(x, None, self.init_norm.gamma,
+                                         norms[0], self.dtype)
                 for l, blk in enumerate(self.blocks):
-                    x = blk.decode(x, caches[l], cross_kv[l], mask2, pos)
-                logits2 = self._logits(self.final_norm(x[:, 0, :]))
+                    x, x_n = blk.decode(
+                        x, x_n, caches[l], cross_kv[l], mask2, pos,
+                        norms[l + 1],
+                        torch.float32 if l + 1 == c.n_layer else self.dtype)
+                logits2 = self._logits(x_n[:, 0, :])
                 cond, null = logits2[:b], logits2[b:]
                 logits = (cond if cond_scale == 1
                           else null + (cond - null) * cond_scale)

@@ -215,6 +215,33 @@ def job_cat_cli(inp, mesh) -> Dict:
             "step": sd["step"]}
 
 
+def job_gpt_sample_tp(inp, mesh) -> Dict:
+    """`GPT.sample` on this rank's tp slice of an f32 GPT under injected
+    gumbel noise, every call into `ops.ln_fused` and of the split middle
+    norm counted: the tokens, the counts and the kernel's launches."""
+    from favae_tpu_torch.models import gpt as tgpt
+    from favae_tpu_torch.ops import ln_fused
+    from favae_tpu_torch.parallel.sharding import shard_gpt_
+    gpt = tgpt.GPT(inp["cfg"], dtype=torch.float32).eval()
+    gpt.load_state_dict({k: torch.from_numpy(v) for k, v in inp["gpt"].items()})
+    shard_gpt_(gpt, mesh.tp)
+    calls = {}
+    for mod, name in ((ln_fused, "add_ln"), (ln_fused, "gelu_ln"),
+                      (ln_fused, "add_ln_plain"), (ln_fused, "gelu_ln_plain"),
+                      (tgpt, "split_layer_norm")):
+        calls[name] = 0
+
+        def counted(*args, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        setattr(mod, name, counted)
+    launches = ln_fused.LAUNCHES["add_ln"]
+    tokens = gpt.sample(inp["te"], inp["tm"], gumbel_noise=inp["noise"],
+                        **inp["kw"])
+    return {"tokens": tokens, "calls": calls,
+            "launches": ln_fused.LAUNCHES["add_ln"] - launches}
+
+
 def job_favae_cli(inp, mesh) -> Dict:
     """`cli.train_favae.main` under this launch."""
     from favae_tpu_torch.cli import train_favae
@@ -224,7 +251,7 @@ def job_favae_cli(inp, mesh) -> Dict:
 
 JOBS = {"favae_step": job_favae_step, "favae_init": job_favae_init,
         "cat_step": job_cat_step, "cat_cli": job_cat_cli,
-        "favae_cli": job_favae_cli}
+        "favae_cli": job_favae_cli, "gpt_sample_tp": job_gpt_sample_tp}
 # the jobs that start their own process group (through a CLI)
 CLI_JOBS = ("cat_cli", "favae_cli")
 
