@@ -10,10 +10,11 @@ The step is then captured once on that stream and the graph replayed on the
 current stream for the other n - 1 calls. A capture that fails raises: there
 is no eager fallback on the card.
 
-Kernel launch counts (`LAUNCHES` of the kernel modules) are counted on the
-host where a wrapper launches, so a capture would count once and a replay
-not at all: the counts taken during the capture are undone and added again
-after each replay, and stay the launches that ran on the card.
+Kernel launch counts (`LAUNCHES` of the kernel modules) and the work
+counters beside them (`work_counts`) are counted on the host where a
+wrapper launches, so a capture would count once and a replay not at all:
+the counts taken during the capture are undone and added again after each
+replay, and stay the launches and the work that ran on the card.
 
 `STATS` counts the graphs captured, their replays and the host seconds the
 captures took. The warm-up, the capture and each replay (with its `after`)
@@ -44,11 +45,24 @@ def launch_counts() -> List[Dict[str, int]]:
             ln_fused.LAUNCHES]
 
 
-def counts_of(capture: Callable[[], None]) -> List[Dict[str, int]]:
+def work_counts() -> Dict[str, Dict[str, float]]:
+    """The work counters by group: `vq` (`ops.vq.WORK`), `decode_step`
+    (`ops.decode_step_kernel.WORK`), `codec` (`models.blocks.STATS`)."""
+    from favae_tpu_torch.models import blocks
+    from favae_tpu_torch.ops import decode_step_kernel, vq
+    return {"vq": vq.WORK, "decode_step": decode_step_kernel.WORK,
+            "codec": blocks.STATS}
+
+
+def _counted() -> List[Dict[str, float]]:
+    return launch_counts() + list(work_counts().values())
+
+
+def counts_of(capture: Callable[[], None]) -> List[Dict[str, float]]:
     """Call `capture()` (a CUDA-graph capture, which launches nothing) and
-    undo the launches it counted; returns them, to be added once a replay
-    (`add_counts`)."""
-    counts = launch_counts()
+    undo the launches and the work it counted; returns them, to be added
+    once a replay (`add_counts`)."""
+    counts = _counted()
     before = [dict(c) for c in counts]
     capture()
     taken = [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)]
@@ -57,8 +71,8 @@ def counts_of(capture: Callable[[], None]) -> List[Dict[str, int]]:
     return taken
 
 
-def add_counts(taken: List[Dict[str, int]]) -> None:
-    for c, d in zip(launch_counts(), taken):
+def add_counts(taken: List[Dict[str, float]]) -> None:
+    for c, d in zip(_counted(), taken):
         for k, v in d.items():
             c[k] += v
 

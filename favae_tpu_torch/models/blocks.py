@@ -4,6 +4,8 @@ Activations are NCHW tensors in `torch.channels_last` memory format.
 Parameters are f32; convolutions and linear layers compute in `dtype` with
 the weights cast at call time, as flax `dtype=` does. Softmax and LayerNorm
 run in f32. Every GroupNorm goes through `ops.gn.group_norm_act`.
+`AttnBlock`'s attention is the span `codec.attn`, and `STATS` counts its
+calls and the score entries they form (`profiling.counters()`' `codec.*`).
 
 Parameter names follow the reference's torch state_dict
 (favae_tpu/utils/torch_export.py:47-84): a ResnetBlock is the reference's
@@ -23,6 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from favae_tpu_torch.ops.gn import group_norm_act
+from favae_tpu_torch.profiling import span
+
+# `AttnBlock` calls and the entries of their score matrices, B * L^2 a call
+# (one head over L = H * W tokens)
+STATS = {"attn_calls": 0, "attn_scores": 0}
 
 
 class GroupNormAct(nn.Module):
@@ -199,7 +206,10 @@ class AttnBlock(nn.Module):
 
     def forward(self, x):
         h, w = x.shape[2:]
-        out = self.attn(_tokens(self.norm(x)), num_heads=1)
+        with span("codec.attn"):
+            out = self.attn(_tokens(self.norm(x)), num_heads=1)
+        STATS["attn_calls"] += 1
+        STATS["attn_scores"] += x.shape[0] * (h * w) ** 2
         return x + _image(out, h, w).to(x.dtype)
 
 

@@ -56,6 +56,9 @@ from favae_tpu_torch.ops.int8_matmul import (DEFAULT_SMS, check_cuda,
 
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"decode_step": 0}
+# the bytes the steps must stream (`step_bytes`) summed over the calls, the
+# plain path's on the CPU too (`profiling.counters()`' `decode_step.bytes`)
+WORK = {"bytes": 0.0}
 
 Position = Union[int, torch.Tensor]   # a Python int or a 0-dim int tensor
 
@@ -394,6 +397,27 @@ def check_positions(device) -> None:
                            "nothing")
 
 
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def step_bytes(x, pos: Position, caches, cross_kv, cross_bias, rel_rows,
+               fused: Dict[str, torch.Tensor]) -> float:
+    """The bytes one step must stream, as row 6's bound counts them: x read
+    and x_new written, the cross K/V, its bias and the position's rel-pos
+    rows, every prepared tensor of `fused` (int8 weights, their scales, the
+    bf16 `to_kv`, the norms) and the self-attention cache's rows up to the
+    position. The position of a 0-dim tensor is not known on the host: its
+    rows are counted at the mean over a full sweep of the S positions,
+    (S + 1) / 2, so that a loop over all of them counts what they read."""
+    layers, rows, seq, dh = caches.shape
+    cache_rows = ((seq + 1) / 2 if isinstance(pos, torch.Tensor)
+                  else operator.index(pos) + 1)
+    return (2 * _nbytes(x) + _nbytes(cross_kv, cross_bias, rel_rows)
+            + _nbytes(*fused.values())
+            + layers * rows * dh * caches.element_size() * cache_rows)
+
+
 def decode_step_fused(x, pos: Position, caches, cross_kv, cross_bias,
                       rel_rows, fused: Dict[str, torch.Tensor],
                       cfg: GPTConfig,
@@ -427,6 +451,8 @@ def decode_step_fused(x, pos: Position, caches, cross_kv, cross_bias,
     elif not 0 <= operator.index(pos) < seq:
         raise ValueError(f"decode_step_fused: pos {pos} outside [0, {seq})")
     if x.device.type == "cpu":
+        WORK["bytes"] += step_bytes(x, pos, caches, cross_kv, cross_bias,
+                                    rel_rows, fused)
         return decode_step_fused_plain(x, pos, caches, cross_kv, cross_bias,
                                        rel_rows, fused, cfg)
     rows, d = x.shape
@@ -469,6 +495,8 @@ def decode_step_fused(x, pos: Position, caches, cross_kv, cross_bias,
                   for n in _POINTER_ORDER])
     p = plan(cfg, sm_count(x.device))
     kcs = (p["kc_q"], p["kc_o"], p["kc_1"], p["kc_2"])
+    streamed = step_bytes(x, pos, caches, cross_kv, cross_bias, rel_rows,
+                          fused)
     lib = _library()
     with torch.cuda.device(x.device):
         error = _error_word(x.device)
@@ -499,4 +527,5 @@ def decode_step_fused(x, pos: Position, caches, cross_kv, cross_bias,
         raise RuntimeError(f"decode_step_fused: cooperative launch failed "
                            f"with CUDA error {err}")
     LAUNCHES["decode_step"] += 1
+    WORK["bytes"] += streamed
     return x_new, caches

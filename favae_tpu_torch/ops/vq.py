@@ -26,6 +26,9 @@ from favae_tpu_torch.ops.int8_matmul import (DEFAULT_SMS, launch_on, sm_count,
 
 # kernel launches since the last reset; chip_smoke.py zeroes and reads it
 LAUNCHES = {"vq_nearest": 0}
+# the searches' work: N * K * D multiply-adds summed over the calls, the
+# plain path's on the CPU too (`profiling.counters()`' `vq.macs`)
+WORK = {"macs": 0}
 
 _BN, _BK = 128, 128  # token and code tile of csrc/vq_nearest.cu
 MAX_TILES = 1 << 16  # token tiles a stream's arrival counters cover
@@ -119,6 +122,7 @@ def vq_nearest(x: torch.Tensor, e: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (N, D) f32, e (K, D) f32, bias (K,) f32 or None -> (N,) int32."""
     if x.device.type == "cpu":
+        WORK["macs"] += x.shape[0] * e.shape[0] * x.shape[-1]
         return vq_nearest_plain(x, e, bias)
     if x.device.type != "cuda":
         raise ValueError(f"vq_nearest: unsupported device {x.device}")
@@ -162,6 +166,7 @@ def vq_nearest(x: torch.Tensor, e: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"vq_nearest: CUDA launch failed with error {err}")
     LAUNCHES["vq_nearest"] += 1
+    WORK["macs"] += n * k * d
     return out
 
 

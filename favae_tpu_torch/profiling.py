@@ -41,8 +41,10 @@ def span(name: str):
 
 def counters() -> Dict[str, float]:
     """Every counter the port keeps, as `{"group.name": number}`:
-    `launches.<kernel>` (the kernel modules' `LAUNCHES`, exact across graph
-    replays), `collectives.*` (`parallel.mesh.STATS`), `data.*`
+    `launches.<kernel>` (the kernel modules' `LAUNCHES`) and the work
+    beside them (`graphs.work_counts`: `vq.macs`, `decode_step.bytes`,
+    `codec.attn_calls`, `codec.attn_scores`), exact across graph replays;
+    `collectives.*` (`parallel.mesh.STATS`), `data.*`
     (`data.pipeline.STATS`) and `graphs.*` (`graphs.STATS`). The counters
     are plain module dicts, always on: subtract two snapshots."""
     from favae_tpu_torch import graphs
@@ -51,7 +53,8 @@ def counters() -> Dict[str, float]:
     out: Dict[str, float] = {}
     for launches in graphs.launch_counts():
         out.update((f"launches.{k}", v) for k, v in launches.items())
-    for group, stats in (("collectives", mesh.STATS),
+    for group, stats in (*graphs.work_counts().items(),
+                         ("collectives", mesh.STATS),
                          ("data", pipeline.STATS), ("graphs", graphs.STATS)):
         out.update((f"{group}.{k}", v) for k, v in stats.items())
     return out

@@ -83,16 +83,21 @@ def test_span_under_a_profiler_is_a_nested_operator_range():
 def test_codec_spans_in_order():
     model = build_model(_cat_cfg().vqgan, "cpu")
     x = torch.rand(1, 32, 32, 3) * 2 - 1
-    names = [n for n, _, _ in _profiled(lambda: model.reconstruct(x))]
-    assert names == ["favae:codec.encode", "favae:codec.quantize",
-                     "favae:codec.decode"]
+    # each stage's mid-block attention is a `codec.attn` inside it
+    stages = ["favae:codec.encode", "favae:codec.attn",
+              "favae:codec.quantize", "favae:codec.decode",
+              "favae:codec.attn"]
+    spans = _profiled(lambda: model.reconstruct(x))
+    assert [n for n, _, _ in spans] == stages
+    for outer, inner in ((0, 1), (3, 4)):
+        assert spans[outer][1] <= spans[inner][1] <= spans[inner][2] \
+            <= spans[outer][2]
     names = [n for n, _, _ in _profiled(
         lambda: model.generate(x, inference=True))]
-    assert names == ["favae:codec.encode", "favae:codec.quantize",
-                     "favae:codec.decode"]
+    assert names == stages
     idx = torch.zeros(1, 8, 8, dtype=torch.long)
     assert [n for n, _, _ in _profiled(lambda: model.decode_code(idx))] == \
-        ["favae:codec.decode"]
+        ["favae:codec.decode", "favae:codec.attn"]
 
 
 def test_sample_images_spans_in_order():
@@ -104,9 +109,9 @@ def test_sample_images_spans_in_order():
     names = [n for n, _, _ in spans]
     assert names == ["favae:cat.clip", "favae:cat.prepare",
                      "favae:cat.tokens", "favae:cat.decode",
-                     "favae:codec.decode"]
-    (_, a, b), (_, c, d) = spans[3], spans[4]
-    assert a <= c <= d <= b  # the FA-VAE decode inside the stage
+                     "favae:codec.decode", "favae:codec.attn"]
+    (_, a, b), (_, c, d), (_, e, f) = spans[3], spans[4], spans[5]
+    assert a <= c <= e <= f <= d <= b  # the FA-VAE decode inside the stage
 
 
 class SleepyDataset:
@@ -164,12 +169,14 @@ def test_counters_hold_every_group():
     for launches in graphs.launch_counts():
         for k, v in launches.items():
             assert got[f"launches.{k}"] == v
-    for group, stats in (("collectives", mesh.STATS),
+    for group, stats in (*graphs.work_counts().items(),
+                         ("collectives", mesh.STATS),
                          ("data", pipeline.STATS), ("graphs", graphs.STATS)):
         for k, v in stats.items():
             assert got[f"{group}.{k}"] == v
-    assert {k.split(".")[0] for k in got} == {"launches", "collectives",
-                                              "data", "graphs"}
+    assert {k.split(".")[0] for k in got} == {
+        "launches", "vq", "decode_step", "codec", "collectives", "data",
+        "graphs"}
     assert all(isinstance(v, (int, float)) for v in got.values())
 
 
