@@ -29,7 +29,11 @@ Phases (any failure exits non-zero):
    `ln_fused`'s kernel (row 8) against its plain op sequence in every form
    at gpt2_medium's two widths in bf16 and f32, timed at the token step's
    attention boundary (8 x 1536) and feed-forward middle (8 x 6144) beside
-   the plain sequence eager and graphed;
+   the plain sequence eager and graphed; `mqa_decode`'s kernel (row 9)
+   against its plain op sequence in both forms at gpt2_medium's attention
+   (8 rows, 16 heads, a 256-row cache at positions 0, 128 and 255, 77 + 1
+   text keys) and 24 heads, timed at position 255 beside its bytes' bound
+   and the plain sequence eager and graphed;
 4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
@@ -56,9 +60,10 @@ Phases (any failure exits non-zero):
    `--quantized --gpt_name gpt2_large` on the int8 FFN kernel; every token
    step runs as a CUDA graph with launches counted per replay), counts
    zeroed before and read after each, ms a token beside the card's name
-   and power limit (the exact runs 1 + 4 a layer `add_ln` launches a
-   token); `GPT.sample` at gpt2_medium through the graph, one seed twice
-   and another once, and the fused route replayed against the
+   and power limit (the exact runs 1 + 4 a layer `add_ln` launches and 2 a
+   layer `mqa_decode` launches a token); `GPT.sample` at gpt2_medium
+   through the graph, one seed twice and another once, and the fused
+   route replayed against the
    same step called eagerly (the same tokens and logits, bit for bit);
    `sample_tokens` at gpt2_large through the graph on its exact route (the
    FFN-only route's yardstick) and its FFN-only route, one seed twice and
@@ -1357,6 +1362,123 @@ def add_ln_kernel_row(rows, launches):
             **rows["boundary"], "gelu": rows["gelu"]}
 
 
+def mqa_decode_a_token(cfg):
+    """`mqa_decode` launches of one `GPT.sample` token step: a
+    self-attention and a cross-attention a layer."""
+    return 2 * cfg.n_layer
+
+
+def mqa_decode_case(pos, heads=16, s=256, m=77, rows=8, dh=64, seed=50):
+    """Both forms of `mqa_decode` at gpt2_medium's attention (8 CFG rows,
+    16 heads of 64, a 256-row cache at `pos`, 77 text tokens plus the
+    null), bf16, inputs as the token step gives them: {form: (kernel call,
+    plain call)}, each call on its own copy of the cache, and the inputs."""
+    import torch
+    from favae_tpu_torch.models.gpt import _rel_pos_indices
+    from favae_tpu_torch.ops import mqa_decode as md
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(
+            np.float32)).cuda()
+
+    bf = torch.bfloat16
+    q, kv = t(rows, 1, heads * dh, scale=3.0).to(bf), t(rows, 1, dh).to(bf)
+    cache = t(rows, s, dh).to(bf)
+    cache[:, pos:] = 0
+    grid = int(round(s ** 0.5))
+    table = t((2 * grid - 1) ** 2, heads)
+    idx = torch.from_numpy(_rel_pos_indices(grid)).long().cuda()
+    null, at = t(dh), torch.tensor(pos, device="cuda")
+    kv_text = t(rows, m, dh).to(bf)
+    lengths = rng.randint(1, m, rows // 2)
+    text = torch.from_numpy(np.arange(m)[None] < lengths[:, None]).cuda()
+    mask = torch.cat([text, torch.zeros_like(text)], 0)
+    caches = {"kernel": cache.clone(), "plain": cache.clone()}
+    cases = {
+        "self": (lambda: md.self_attend(q, kv, caches["kernel"], at, null,
+                                        table, idx),
+                 lambda: md.self_attend_plain(q, kv, caches["plain"], at,
+                                              null, table, idx)),
+        "cross": (lambda: md.cross_attend(q, kv_text, mask, null),
+                  lambda: md.cross_attend_plain(q, kv_text, mask, null))}
+    # the bytes a call must move: its inputs read once (at pos, the cache
+    # rows to it; the position's row of the index table and its bias
+    # entries), its output (and the cache row) written once
+    need = {"self": nbytes(q, kv, cache[:, :pos + 1], null, q, kv)
+            + s * (idx.element_size() + heads * table.element_size()),
+            "cross": nbytes(q, kv_text, mask, null, q)}
+    return cases, caches, need
+
+
+def bf16_rounding_ratio(got, want):
+    """max |got - want| over one rounding of the stored dtype of the
+    output's largest magnitude: at most 1 is within it."""
+    import torch
+    eps = torch.finfo(want.dtype).eps
+    return ((got.float() - want.float()).abs().max()
+            / (eps * want.float().abs().max())).item()
+
+
+def check_mqa_decode():
+    """Row 9: `mqa_decode`'s kernel against its plain op sequence on the
+    card, both forms at gpt2_medium's attention (`mqa_decode_case`) at
+    positions 0, 128 and 255, and the self form at gpt2_mini's 24 heads:
+    one launch a call, the plain version's dtype and shape, within a bf16
+    rounding of the output's largest magnitude, the cache written as the
+    plain version writes it, the same bits twice; timed at position 255
+    (257 keys) three ways beside the bytes' bound and the plain sequence
+    (`plain_ms` eager, `plain_device_ms` in a graph, as the token graph ran
+    it before the kernel)."""
+    import torch
+    from favae_tpu_torch.ops import mqa_decode as md
+    rows, worst, bad = {}, {}, []
+    with torch.inference_mode():
+        for heads, pos in [(16, 0), (16, 128), (16, 255), (24, 255)]:
+            cases, caches, _ = mqa_decode_case(pos, heads)
+            for form, (kernel, plain) in cases.items():
+                before = md.LAUNCHES["mqa_decode"]
+                got = kernel()
+                launched = md.LAUNCHES["mqa_decode"] - before
+                want, again = plain(), kernel()
+                key = f"{form} heads={heads} pos={pos}"
+                worst[key] = bf16_rounding_ratio(got, want)
+                if not (launched == 1 and worst[key] <= 1
+                        and got.dtype == want.dtype
+                        and got.shape == want.shape
+                        and torch.equal(got, again)
+                        and torch.equal(caches["kernel"], caches["plain"])):
+                    bad.append((key, launched, worst[key]))
+        for form in ("self", "cross"):
+            cases, _, need = mqa_decode_case(255)
+            kernel, plain = cases[form]
+            row = {"shape": f"rows=8 heads=16 dh=64 keys="
+                            f"{257 if form == 'self' else 78} {form} bf16",
+                   "max_rounding_ratio": worst[f"{form} heads=16 pos=255"],
+                   "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+                   "plain_ms": time_ms(plain),
+                   "plain_device_ms": device_ms(plain), "library_ms": None}
+            row["bound_ms"], row["bound_by"] = bound(need[form], 0)
+            rows[form] = row
+            log("mqa_decode", json.dumps(row))
+    log("mqa_decode rounding ratios", json.dumps(worst))
+    if bad:
+        raise AssertionError(f"mqa_decode against its plain version (case, "
+                             f"launches, rounding ratio): {bad}")
+    return rows
+
+
+def mqa_decode_kernel_row(rows, launches):
+    """The `kernels` line's entry for row 9, with the launches of the serve
+    slice's exact run."""
+    return {"name": "mqa_decode", "route": "triton",
+            "source": "favae_tpu_torch/ops/mqa_decode.py",
+            "replaces": "the token step's attention chains, which XLA fuses "
+                        "(favae_tpu/models/gpt.py)",
+            "launches": launches, "on_main_path": True,
+            **rows["self"], "cross": rows["cross"]}
+
+
 def int8_kernel_checks():
     """matmul_int8 at the four CAT projection shapes, ffn_block_int8 at
     both widths and 2, 6, 8 and 16 rows (and on two streams at once),
@@ -1811,15 +1933,16 @@ SERVE_ARGS = ["--prompt", "a smiling woman with glasses",
               "--prompt", "an old man with a beard", "--n", "2",
               "--top_k", "500", "--top_p", "0.95", "--cond_scale", "3",
               "--out", str(ROOT / "output" / "chip_smoke_serve.npz")]
-# (name, extra flags, expected launches of decode_step, ffn_int8 and
-# add_ln: 1 + 4 a layer a token on the exact route, add_ln_a_token)
-SERVE_RUNS = (("exact", [], 0, 0, (1 + 4 * 24) * 256),
-              ("fused", ["--quantized"], 256, 0, 0),
+# (name, extra flags, expected launches of decode_step, ffn_int8, add_ln
+# (1 + 4 a layer a token on the exact route, add_ln_a_token) and
+# mqa_decode (2 a layer a token on the exact route, mqa_decode_a_token))
+SERVE_RUNS = (("exact", [], 0, 0, (1 + 4 * 24) * 256, 2 * 24 * 256),
+              ("fused", ["--quantized"], 256, 0, 0, 0),
               ("ffn_int8", ["--quantized", "--gpt_name", "gpt2_large"],
-               0, 36 * 256, 0),
+               0, 36 * 256, 0, 0),
               # the yardstick of the FFN-only route: the same model, exact
               ("exact_large", ["--gpt_name", "gpt2_large"], 0, 0,
-               (1 + 4 * 36) * 256))
+               (1 + 4 * 36) * 256, 2 * 36 * 256))
 # serve cross-check bounds, card against CPU at gpt2_medium width, 2 layers,
 # 4x4 tokens, on CFG logits of up to 7.7. f32 (TF32 off): the two differ by
 # summation order only (5.7e-6 measured on an H100). bf16 routes: both sides
@@ -1852,9 +1975,10 @@ def int8_counts():
 
 
 def serve_counts():
-    """The launch counts of the serving kernels: the int8 ones and add_ln."""
-    from favae_tpu_torch.ops import ln_fused
-    return (*int8_counts(), ln_fused.LAUNCHES)
+    """The launch counts of the serving kernels: the int8 ones, add_ln and
+    mqa_decode."""
+    from favae_tpu_torch.ops import ln_fused, mqa_decode
+    return (*int8_counts(), ln_fused.LAUNCHES, mqa_decode.LAUNCHES)
 
 
 def serve_slice():
@@ -1867,7 +1991,7 @@ def serve_slice():
     log(f"tokenizer word pattern compiled with: {word_pattern()[1]}")
     (ROOT / "output").mkdir(exist_ok=True)
     runs, launches = {}, {}
-    for name, extra, want_step, want_ffn, want_ln in SERVE_RUNS:
+    for name, extra, want_step, want_ffn, want_ln, want_mqa in SERVE_RUNS:
         for counts in (vq.LAUNCHES, gn.LAUNCHES, *serve_counts()):
             for k in counts:
                 counts[k] = 0
@@ -1898,18 +2022,20 @@ def serve_slice():
                 and 0 <= toks.min() and toks.max() < 1024):
             raise AssertionError(f"serve {name}: bad images or tokens")
         if (got["decode_step"], got["ffn_int8"], got["matmul_int8"],
-                got["add_ln"]) != (want_step, want_ffn, 0, want_ln):
+                got["add_ln"], got["mqa_decode"]) != (
+                    want_step, want_ffn, 0, want_ln, want_mqa):
             raise AssertionError(
                 f"serve {name}: launches {got}, expected decode_step "
                 f"{want_step}, ffn_int8 {want_ffn}, matmul_int8 0, add_ln "
-                f"{want_ln}")
+                f"{want_ln}, mqa_decode {want_mqa}")
         if not (got["gn_stats"] and got["gn_stats"] == got["gn_apply"]):
             raise AssertionError(f"serve {name}: the FA-VAE decode launched "
                                  f"GroupNorm kernels {got}")
         runs[name], launches[name] = res, got
     return runs, {"decode_step": launches["fused"]["decode_step"],
                   "ffn_int8": launches["ffn_int8"]["ffn_int8"],
-                  "matmul_int8": 0, "add_ln": launches["exact"]["add_ln"]}
+                  "matmul_int8": 0, "add_ln": launches["exact"]["add_ln"],
+                  "mqa_decode": launches["exact"]["mqa_decode"]}
 
 
 def timed_tokens(sample):
@@ -1946,9 +2072,10 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
     rows, seeded random weights and text embeddings, top-k 500, top-p 0.95,
     scale 3: `GPT.sample` through the CUDA graph of its token step with one
     seed twice and another once (`add_ln_a_token` launches of `ln_fused`'s
-    kernel a token, every replay counted, and no other hand-written
-    kernel), a CPU generator refused; then the fused route of
-    `sample_tokens` through the graph, 256 `decode_step` launches
+    kernel and `mqa_decode_a_token` of `mqa_decode`'s a token, every replay
+    counted, and no other hand-written kernel), a CPU generator refused;
+    then the fused route of `sample_tokens` through the graph, 256
+    `decode_step` launches
     (`decode_replay` holds its kernel's replays against eager calls)."""
     import torch
     from favae_tpu_torch import config as C
@@ -1996,7 +2123,8 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
     log("serve-sample-graph", json.dumps(out))
     want = {"decode_step": seq}
     if (out["gpt_sample_graph"]["launches"]
-            != {"add_ln": add_ln_a_token(cfg) * seq}
+            != {"add_ln": add_ln_a_token(cfg) * seq,
+                "mqa_decode": mqa_decode_a_token(cfg) * seq}
             or out["fused_graph"]["launches"] != want
             or not (out["same_seed_same_tokens"]
                     and out["other_seed_other_tokens"]
@@ -2162,17 +2290,19 @@ def cat_train_slice(decode_gn):
     step 0 and after validation; `--img_steps` is 1000) adds one FA-VAE
     decode's `decode_gn` GroupNorm calls, two on the cached path (the
     cached tokens' decode stands for the images), and one `GPT.sample`'s
-    `add_ln` launches. Each checkpoint is timed,
+    `add_ln` and `mqa_decode` launches. Each checkpoint is timed,
     read back and compared (`checking_saves`). Returns the runs and the
     full pipeline's launches a step."""
     import torch
     from favae_tpu_torch import config as C
     from favae_tpu_torch.cli import train_cat
-    from favae_tpu_torch.ops import gn, ln_fused, vq
+    from favae_tpu_torch.ops import gn, ln_fused, mqa_decode, vq
     from favae_tpu_torch.train.cat_trainer import CATTrainer
     # a preview samples once on the exact route: GPT.sample's token steps
     gpt_cfg = C.gpt2_medium(vocab_size=1024)
     per_sample_ln = add_ln_a_token(gpt_cfg) * gpt_cfg.image_encoded_dim ** 2
+    per_sample_mqa = (mqa_decode_a_token(gpt_cfg)
+                      * gpt_cfg.image_encoded_dim ** 2)
 
     def rows_1_4():
         torch.cuda.synchronize()
@@ -2227,6 +2357,7 @@ def cat_train_slice(decode_gn):
         launches = rows_1_4()
         others = {k: v for c in int8_counts() for k, v in c.items()}
         ln = ln_fused.LAUNCHES["add_ln"]
+        mqa = mqa_decode.LAUNCHES["mqa_decode"]
         hist = out["history"]
         losses = [h["loss_gpt"] for h in hist]
         res = {"start_epoch": out["start_epoch"], "steps": len(hist),
@@ -2280,13 +2411,15 @@ def cat_train_slice(decode_gn):
                 and launches == expect and steps == expect_steps
                 and got_previews == want_previews
                 and ln == len(previews) * per_sample_ln
+                and mqa == len(previews) * per_sample_mqa
                 and not any(launches[k] for k in ("gn_bwd_sums",
                                                   "gn_bwd_dx"))
                 and not any(others.values())):
             raise AssertionError(
                 f"cat train {name}: launches {launches} ({steps} in the "
-                f"steps), previews {got_previews}, add_ln {ln} and {others}, "
-                f"expected add_ln {per_sample_ln} a preview, "
+                f"steps), previews {got_previews}, add_ln {ln}, mqa_decode "
+                f"{mqa} and {others}, expected add_ln {per_sample_ln} and "
+                f"mqa_decode {per_sample_mqa} a preview, "
                 f"{expect} ({expect_steps} in the steps) and previews "
                 f"{want_previews} of {decode_gn} GroupNorm calls a decode: "
                 f"rows 1-3 only, the same in each of {encodes} encodes, one "
@@ -3764,6 +3897,7 @@ def main():
     torch.cuda.empty_cache()
     int8_checks = int8_kernel_checks()
     ln_rows = check_add_ln()
+    mqa_rows = check_mqa_decode()
 
     phase_s["3_kernels"] = time.perf_counter() - t_phase
 
@@ -3902,7 +4036,8 @@ def main():
         vq_rows[0], gn_rows, census, bwd_rows, bwd_census,
         train["launches"], recon_launches, cat_step_launches)
         + int8_kernel_rows(int8_checks, serve_launches)
-        + [add_ln_kernel_row(ln_rows, serve_launches["add_ln"])]
+        + [add_ln_kernel_row(ln_rows, serve_launches["add_ln"]),
+           mqa_decode_kernel_row(mqa_rows, serve_launches["mqa_decode"])]
         + phase9_kernel_rows(vq9, gn9, bwd9, launches9),
         "group_norm_act_per_batch": gn_total,
         "phase10_launches_rank0": dist10["launches_rank0"],

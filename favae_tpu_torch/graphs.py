@@ -39,10 +39,10 @@ STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 def launch_counts() -> List[Dict[str, int]]:
     """The `LAUNCHES` dicts of every module with a hand-written kernel."""
     from favae_tpu_torch.ops import (decode_step_kernel, ffn_int8, gn,
-                                     int8_matmul, ln_fused, vq)
+                                     int8_matmul, ln_fused, mqa_decode, vq)
     return [vq.LAUNCHES, gn.LAUNCHES, ffn_int8.LAUNCHES,
             decode_step_kernel.LAUNCHES, int8_matmul.LAUNCHES,
-            ln_fused.LAUNCHES]
+            ln_fused.LAUNCHES, mqa_decode.LAUNCHES]
 
 
 def work_counts() -> Dict[str, Dict[str, float]]:

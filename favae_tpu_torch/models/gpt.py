@@ -19,8 +19,10 @@ positions is one token step that keeps its state in tensors updated in place
 makes no host sync, so that on the card one CUDA graph of it serves every
 position (`graphs.run_steps`). In that step each sublayer boundary (the
 out-norm, the residual add, the next LayerNorm) and the feed-forward's
-middle are one call of `ops/ln_fused.py`: one kernel launch on the card,
-the plain op sequence on the CPU (`CATBlock.decode`).
+middle are one call of `ops/ln_fused.py`, and each attention sublayer's
+chain between its projections one call of `ops/mqa_decode.py`: one kernel
+launch each on the card, the plain op sequence on the CPU
+(`CATBlock.decode`).
 
 Master weights are f32; projections run in `dtype` (bf16 by default) as the
 JAX package's Dense layers do. `sample` casts each weight once, not once a
@@ -61,12 +63,11 @@ from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
 from favae_tpu_torch.graphs import run_steps
-from favae_tpu_torch.ops import ln_fused
+from favae_tpu_torch.ops import ln_fused, mqa_decode
+from favae_tpu_torch.ops.mqa_decode import NEG_INF
 from favae_tpu_torch.parallel.mesh import all_reduce_sum_grad, spans
 from favae_tpu_torch.parallel.sharding import (copy_to_tp, reduce_from_tp,
                                                tp_slice)
-
-NEG_INF = -1e9  # large negative in place of -finfo.max (bf16-safe)
 
 # activation checkpointing of the blocks on the training path, as the JAX
 # package's `_scan_blocks` (favae_tpu/models/gpt.py:405-432): the products
@@ -171,11 +172,14 @@ class RelPosBias2d(nn.Module):
         else:
             at = torch.as_tensor(row_offset, device=self.pos_indices.device)
             rows = self.pos_indices.index_select(0, at.view(1))
-        table = self.pos_bias.weight
-        if spans(tp):
-            table = tp_slice(copy_to_tp(table, tp), 1, tp)
-        bias = F.embedding(rows[:, : j - 1], table)     # (i, j-1, heads)
+        bias = F.embedding(rows[:, : j - 1], self.table(tp))  # (i, j-1, heads)
         return F.pad(bias.permute(2, 0, 1), (1, 0))
+
+    def table(self, tp=None) -> torch.Tensor:
+        """The bias table ((2 size - 1)^2, heads), or with a tp group
+        its columns of this rank's heads."""
+        table = self.pos_bias.weight
+        return tp_slice(copy_to_tp(table, tp), 1, tp) if spans(tp) else table
 
 
 class MultiQueryAttention(nn.Module):
@@ -210,10 +214,10 @@ class MultiQueryAttention(nn.Module):
     def local_heads(self) -> int:
         return self.heads // (self.tp.size if self.tp is not None else 1)
 
-    def _rel_bias(self, i: int, j: int, row_offset=None):
+    def _rel_bias(self, i: int, j: int):
         if self.rel_pos_bias is None:
             return None
-        return self.rel_pos_bias(i, j, row_offset, self.tp)[None]
+        return self.rel_pos_bias(i, j, tp=self.tp)[None]
 
     def _out(self, out, dtype):
         """to_out: the (row-split) projection summed over tp, then its
@@ -242,11 +246,6 @@ class MultiQueryAttention(nn.Module):
         attn = torch.softmax(sim, dim=-1)
         out = torch.einsum("bhnm,bmd->bnhd", attn.to(kv_full.dtype), kv_full)
         return out.reshape(b, q.shape[1], heads * self.dim_head)
-
-    def _q(self, x_n):
-        q = self.to_q(copy_to_tp(x_n, self.tp)) * (self.dim_head ** -0.5)
-        return q.reshape(q.shape[0], q.shape[1], self.local_heads,
-                         self.dim_head)
 
     def forward(self, x, *, context=None, context_mask=None,
                 keep_q: Optional[torch.Tensor] = None,
@@ -288,22 +287,22 @@ class MultiQueryAttention(nn.Module):
         dtype (`ln_fused.add_ln` of the boundary before it); kv_cache
         (b, S, dim_head), whose row `pos` (a 0-dim int64 tensor on the
         device, read there; an int is placed in one) is written in place and
-        whose rows beyond it are masked. Returns to_out's projection summed
-        over tp, before its LayerNorm (the next boundary's)."""
+        whose rows beyond it are masked. The chain between the projections
+        is one `mqa_decode.self_attend` call. Returns to_out's projection
+        summed over tp, before its LayerNorm (the next boundary's)."""
         pos = torch.as_tensor(pos, device=kv_cache.device)
-        q = self._q(x_n)
-        kv_cache.index_copy_(1, pos.view(1), self.to_kv(x_n).to(kv_cache.dtype))
-        mask = (torch.arange(kv_cache.shape[1], device=x_n.device)
-                <= pos).expand(x_n.shape[0], -1)
-        out = self._attend(q, kv_cache, context_mask=mask,
-                           rel_bias=self._rel_bias(1, kv_cache.shape[1] + 1,
-                                                   row_offset=pos))
+        rpb = self.rel_pos_bias
+        out = mqa_decode.self_attend(
+            self.to_q(copy_to_tp(x_n, self.tp)), self.to_kv(x_n), kv_cache,
+            pos, self.null_kv, rpb.table(self.tp), rpb.pos_indices)
         return reduce_from_tp(self.to_out[1](out), self.tp)
 
     def cross_step(self, x_n, kv, context_mask):
         """One cross-attention step from the normalised x_n against
-        precomputed kv; to_out's projection as `decode_step`'s."""
-        out = self._attend(self._q(x_n), kv, context_mask=context_mask)
+        precomputed kv (`mqa_decode.cross_attend`); to_out's projection as
+        `decode_step`'s."""
+        out = mqa_decode.cross_attend(self.to_q(copy_to_tp(x_n, self.tp)),
+                                      kv, context_mask, self.null_kv)
         return reduce_from_tp(self.to_out[1](out), self.tp)
 
 
