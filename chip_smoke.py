@@ -1934,12 +1934,13 @@ SERVE_ARGS = ["--prompt", "a smiling woman with glasses",
               "--top_k", "500", "--top_p", "0.95", "--cond_scale", "3",
               "--out", str(ROOT / "output" / "chip_smoke_serve.npz")]
 # (name, extra flags, expected launches of decode_step, ffn_int8, add_ln
-# (1 + 4 a layer a token on the exact route, add_ln_a_token) and
-# mqa_decode (2 a layer a token on the exact route, mqa_decode_a_token))
+# (1 + 4 a layer a token on the exact route, add_ln_a_token; 1 + 3 on the
+# FFN-only one, whose int8 block replaces gelu_ln) and mqa_decode (2 a layer
+# a token on both, mqa_decode_a_token))
 SERVE_RUNS = (("exact", [], 0, 0, (1 + 4 * 24) * 256, 2 * 24 * 256),
               ("fused", ["--quantized"], 256, 0, 0, 0),
               ("ffn_int8", ["--quantized", "--gpt_name", "gpt2_large"],
-               0, 36 * 256, 0, 0),
+               0, 36 * 256, (1 + 3 * 36) * 256, 2 * 36 * 256),
               # the yardstick of the FFN-only route: the same model, exact
               ("exact_large", ["--gpt_name", "gpt2_large"], 0, 0,
                (1 + 4 * 36) * 256, 2 * 36 * 256))
@@ -2115,7 +2116,7 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
         tf, out["fused_graph"] = timed_tokens(
             lambda on_token: sample_tokens(
                 cfg, gpt, embeds, mask, on_token=on_token, fused=fused,
-                dtype=torch.bfloat16, gumbel_noise=noise, **kw))
+                gumbel_noise=noise, **kw))
     out["same_seed_same_tokens"] = bool(torch.equal(a, a2))
     out["other_seed_other_tokens"] = not torch.equal(a, c)
     out["tokens_in_range"] = bool(0 <= int(min(a.min(), tf.min()))
@@ -2140,8 +2141,8 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
 def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     """`sample_tokens` at gpt2_large, 8 CFG rows, seeded random weights and
     text embeddings, top-k 500, top-p 0.95, scale 3: the exact route (the
-    yardstick of the FFN-only one) and the FFN-only route, both through the
-    CUDA graph of the token step, ms a token from CUDA events after each
+    yardstick of the FFN-only one) and the FFN-only route, both through
+    `CATBlock.decode` (rows 8 and 9) and the CUDA graph of the token step, ms a token from CUDA events after each
     token (the first apart), counts zeroed just before each run; then the
     FFN-only route twice with one seed and once with another."""
     import torch
@@ -2163,7 +2164,7 @@ def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     def run(kw, gen_seed):
         grid, res = timed_tokens(lambda on_token: sample_tokens(
             cfg, gpt, embeds, mask, top_k=500, top_p=0.95, cond_scale=3.0,
-            dtype=torch.bfloat16, on_token=on_token,
+            on_token=on_token,
             generator=torch.Generator(device="cuda").manual_seed(gen_seed),
             **kw))
         res["tokens_per_s"] = grid.numel() / res["total_ms"] * 1e3
@@ -2179,14 +2180,20 @@ def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     out["other_seed_other_tokens"] = not torch.equal(a, c)
     out["tokens_in_range"] = bool(0 <= int(a.min()) and int(a.max()) < 1024)
     log("serve-graph", json.dumps(out))
-    want = {"ffn_int8": cfg.n_layer * seq}
-    if (out["exact_graph"]["launches"] != {}
+    # both routes run CATBlock.decode: the FFN-only route without gelu_ln
+    # (its feed-forward and residual are the int8 block)
+    exact = {"add_ln": add_ln_a_token(cfg) * seq,
+             "mqa_decode": mqa_decode_a_token(cfg) * seq}
+    want = {"ffn_int8": cfg.n_layer * seq,
+            "add_ln": (1 + 3 * cfg.n_layer) * seq,
+            "mqa_decode": mqa_decode_a_token(cfg) * seq}
+    if (out["exact_graph"]["launches"] != exact
             or out["ffn_int8_graph"]["launches"] != want
             or not (out["same_seed_same_tokens"]
                     and out["other_seed_other_tokens"]
                     and out["tokens_in_range"])):
         raise AssertionError(f"serve through the token-step graph: {out}, "
-                             f"expected launches {want}")
+                             f"expected launches {exact}, {want}")
     del gpt, qparams
     torch.cuda.empty_cache()
     return out
@@ -2224,7 +2231,7 @@ def serve_cross_check():
             gpt = GPT(cfg, dtype=dtype).eval()
             gpt.load_state_dict(sd)
             gpt.to(dev)
-            kw = dict(top_k=500, top_p=0.95, cond_scale=3.0, dtype=dtype,
+            kw = dict(top_k=500, top_p=0.95, cond_scale=3.0,
                       gumbel_noise=noise.to(dev), return_logits=True,
                       **prepare(gpt))
             args = (cfg, gpt, embeds.to(dev), mask.to(dev))

@@ -12,10 +12,11 @@ stub the JAX CLI falls back to.
         --bpe_vocab bpe_simple_vocab_16e6.txt.gz \
         --prompt "a smiling woman with glasses" --n 4 --out samples.npz
 
-Three engines: the exact bf16 sampler (`GPT.sample`) by default; with
-`--quantized` the whole-step int8 kernel where
-`ops.decode_step_kernel.supports` takes the config (`gpt2_medium`,
-`gpt2_mini`), else the int8 FFN kernel with bf16 attention (`gpt2_large`).
+One token loop, three routes (`models/decode_engine.py`): the exact bf16
+step of `GPT.sample` by default; with `--quantized` the whole-step int8
+kernel where `ops.decode_step_kernel.supports` takes the config
+(`gpt2_medium`, `gpt2_mini`), else the exact step with the int8 FFN kernel
+in place of each feed-forward (`gpt2_large`).
 `--ckpt` takes the GPT from a `train_cat` checkpoint directory (`latest` /
 `best`) instead of a `.pt`; an Orbax checkpoint of favae_tpu raises,
 naming the route from one.

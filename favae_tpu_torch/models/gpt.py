@@ -13,20 +13,24 @@ The parameters are named as the reference's state_dict (`blocks.{i}.{0,1,2}`,
 `to_q.1.weight`, `to_out.2.gamma`, `blocks.{i}.2.{0,1,3,4}`,
 `rel_pos_bias.pos_bias.weight`), so a reference checkpoint loads directly
 (`convert.load_reference_gpt`). The JAX package scans one block over stacked
-(L, ...) parameters; here the blocks are a `ModuleList`. `sample`'s scan over
-positions is one token step that keeps its state in tensors updated in place
-(the position a 0-dim tensor, the per-layer KV caches written at it) and
-makes no host sync, so that on the card one CUDA graph of it serves every
-position (`graphs.run_steps`). In that step each sublayer boundary (the
-out-norm, the residual add, the next LayerNorm) and the feed-forward's
-middle are one call of `ops/ln_fused.py`, and each attention sublayer's
-chain between its projections one call of `ops/mqa_decode.py`: one kernel
-launch each on the card, the plain op sequence on the CPU
+(L, ...) parameters; here the blocks are a `ModuleList`.
+
+`sample_loop` is the token loop of every CAT sampler: `GPT.sample` runs it
+over `block_route`, and `models/decode_engine.py` over that route with the
+int8 feed-forward or over the whole-step kernel. Its scan over positions is
+one token step that keeps its state in tensors updated in place (the
+position a 0-dim tensor, the per-layer KV caches written at it) and makes
+no host sync, so that on the card one CUDA graph of it serves every
+position (`graphs.run_steps`). In `block_route`'s step each sublayer
+boundary (the out-norm, the residual add, the next LayerNorm) and the
+feed-forward's middle are one call of `ops/ln_fused.py`, and each attention
+sublayer's chain between its projections one call of `ops/mqa_decode.py`:
+one kernel launch each on the card, the plain op sequence on the CPU
 (`CATBlock.decode`).
 
 Master weights are f32; projections run in `dtype` (bf16 by default) as the
-JAX package's Dense layers do. `sample` casts each weight once, not once a
-token.
+JAX package's Dense layers do. A sampler casts each weight it uses once, not
+once a token (`cast_weights`).
 
 Training (`forward(..., train=True)`, favae_tpu/models/gpt.py:203-529):
 dropout on the inputs of `to_q` and `to_kv` (separate masks; the FFN has
@@ -53,7 +57,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, List, Optional, Sequence, Union
+from typing import (Callable, ContextManager, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -335,8 +340,8 @@ class FeedForward(nn.Sequential):
         columns, the middle LayerNorm's statistics summed over tp, fc2's
         partial product summed over tp."""
         if not self.fold:
-            return self._split_from_normed(self[0](x).to(self.dtype)).to(
-                x.dtype)
+            return self._split_from_normed(self[0](x).to(self.dtype),
+                                           self[3].gamma).to(x.dtype)
         tp, width = self.tp, self[3].gamma.shape[0]
         gamma_mid = tp_slice(copy_to_tp(self[3].gamma, tp), 0, tp)
         x_n, g_in = self[0].parts(x)
@@ -344,9 +349,9 @@ class FeedForward(nn.Sequential):
         h = self[4](split_layer_norm(self[2](h), width, tp), gamma_mid)
         return reduce_from_tp(h, tp).to(x.dtype)
 
-    def _split_from_normed(self, x_n):
+    def _split_from_normed(self, x_n, gamma_mid):
         tp, width = self.tp, self[3].gamma.shape[0]
-        gamma_mid = tp_slice(copy_to_tp(self[3].gamma, tp), 0, tp)
+        gamma_mid = tp_slice(copy_to_tp(gamma_mid, tp), 0, tp)
         h = self[1](copy_to_tp(x_n, tp))
         h = split_layer_norm(self[2](h), width, tp) * gamma_mid
         return reduce_from_tp(self[4](h.to(self.dtype)), tp)
@@ -362,15 +367,24 @@ class FeedForward(nn.Sequential):
         h = self[4](self[3](self[2](h)).to(self.dtype))
         return h.to(x.dtype)
 
+    def step_gamma(self, i: int) -> torch.Tensor:
+        """The gamma the token step's LayerNorm `self[i]` (0: before fc1,
+        3: before fc2) applies: its own, or ones under `fold_ln_scale`,
+        whose gammas `cast_weights` folds into fc1's and fc2's casts, as the
+        JAX package's decode runs the fold (favae_tpu/models/gpt.py:
+        343-352)."""
+        gamma = self[i].gamma
+        return torch.ones_like(gamma) if self.fold else gamma
+
     def decode(self, x_n):
         """The feed-forward of one token step from x_n, its input already
-        normalised by `self[0]` and cast to the compute dtype: fc1, GELU and
-        the middle LayerNorm (`ln_fused.gelu_ln`, or its statistics summed
-        over tp), fc2. Returns fc2's product summed over tp, before the
-        residual."""
+        normalised by `self[0]` (`step_gamma(0)`) and cast to the compute
+        dtype: fc1, GELU and the middle LayerNorm (`ln_fused.gelu_ln`, or
+        its statistics summed over tp), fc2. Returns fc2's product summed
+        over tp, before the residual."""
         if spans(self.tp):
-            return self._split_from_normed(x_n)
-        return self[4](ln_fused.gelu_ln(self[1](x_n), self[3].gamma,
+            return self._split_from_normed(x_n, self.step_gamma(3))
+        return self[4](ln_fused.gelu_ln(self[1](x_n), self.step_gamma(3),
                                         self.dtype))
 
 
@@ -419,7 +433,8 @@ class CATBlock(nn.ModuleList):
 
     def decode(self, x, x_n, cache, cross_kv, context_mask,
                pos: Union[int, torch.Tensor], gamma_next: torch.Tensor,
-               out_dtype: torch.dtype):
+               out_dtype: torch.dtype,
+               ffn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         """Incremental step: x (b, 1, dim) the residual stream and x_n its
         self-attention input, normalised (`decode_step`); cache (b, S, dh),
         written in place at `pos` (an int or a 0-dim int64 tensor on the
@@ -427,12 +442,17 @@ class CATBlock(nn.ModuleList):
         normalised by `gamma_next`, the next LayerNorm's, in `out_dtype`).
         Each sublayer boundary (its out-norm, the residual add, the next
         sublayer's norm) is one `ln_fused.add_ln` call: its inputs are
-        summed over tp before it, so every rank computes the same."""
+        summed over tp before it, so every rank computes the same. `ffn`,
+        from x to x after the feed-forward and its residual add, replaces
+        the block's own feed-forward."""
         sa, ca, ff = self
         x, x_n = ln_fused.add_ln(sa.decode_step(x_n, cache, pos), x,
                                  sa.to_out[2].gamma, ca.norm.gamma, ca.dtype)
         x, x_n = ln_fused.add_ln(ca.cross_step(x_n, cross_kv, context_mask),
-                                 x, ca.to_out[2].gamma, ff[0].gamma, ff.dtype)
+                                 x, ca.to_out[2].gamma, ff.step_gamma(0),
+                                 ff.dtype)
+        if ffn is not None:
+            return ln_fused.add_ln(ffn(x), None, None, gamma_next, out_dtype)
         return ln_fused.add_ln(ff.decode(x_n), x, None, gamma_next, out_dtype)
 
 
@@ -475,18 +495,9 @@ class GPT(nn.Module):
         # weight tying (gpt_ca.py:278-279)
         return x.float() @ self.tok_emb.weight.float().T
 
-    @contextlib.contextmanager
     def cast_weights(self):
-        """While inside, every Dense uses a weight cast once to its compute
-        dtype instead of casting on each call."""
-        dense = [m for m in self.modules() if isinstance(m, Dense)]
-        try:
-            for m in dense:
-                m.cast = m.weight.detach().to(m.compute_dtype)
-            yield
-        finally:
-            for m in dense:
-                m.cast = None
+        """`cast_weights` of every Dense of the GPT."""
+        return cast_weights(self)
 
     def forward(self, image_token_ids, text_token_embeds, text_mask, *,
                 cond_drop_prob: Optional[float] = None, train: bool = False,
@@ -559,107 +570,167 @@ class GPT(nn.Module):
         return null_logits + (logits - null_logits) * cond_scale
 
     # ------------------------------------------------------------------
-    @torch.inference_mode()
-    def sample(self, text_token_embeds, text_mask, *,
-               generator: Optional[torch.Generator] = None,
-               temperature: float = 1.0, top_k: Optional[int] = None,
-               top_p: float = 1.0, cond_scale: float = 3.0,
-               gumbel_noise: Optional[torch.Tensor] = None,
-               on_token: Optional[Callable[[int], None]] = None):
+    def sample(self, text_token_embeds, text_mask, **kw):
         """Autoregressive sampling with KV caches (functionally the
         reference's gpt_ca.py:343-367, which re-forwards the prefix for every
-        token). CFG runs as a 2B batch: rows [0:B] conditional, [B:2B] with
-        an all-false text mask. `gumbel_noise` (S, B, vocab) replaces the
-        generator's draws; `on_token(pos)` is called after each token's work is
-        queued. Returns the (B, grid, grid) int64 token grid.
+        token): `sample_loop` over `block_route`, with its keywords."""
+        return sample_loop(self, text_token_embeds, text_mask, block_route,
+                           **kw)
 
-        The token step keeps its state in tensors that it updates in place
-        (the position as a 0-dim tensor, the previous tokens, a (B, S) token
-        buffer) and makes no host sync, as the JAX package's `lax.scan`
-        over positions (favae_tpu/models/gpt.py:592). On the card
-        `graphs.run_steps` runs the first token eagerly and replays one CUDA
-        graph of the step for the others, with a CUDA `generator` registered
-        so that each replay draws anew; a CPU generator there raises (a
-        captured draw on the host would repeat one noise for every token).
-        Under a tp group of more than one rank the step holds collectives,
-        which a graph does not capture: there the same step runs eagerly,
-        token by token, on the card, still with no host sync, and a CPU
-        generator raises there too. On the CPU the step runs eagerly.
-        A GPT built with `fold_ln_scale` raises: the step does not fold the
-        LayerNorms' gammas into the weights as the JAX package's decode
-        does; sample from a GPT without it, which takes the same
-        parameters."""
-        c = self.cfg
-        if c.fold_ln_scale:
-            raise ValueError("GPT.sample does not fold the LayerNorm scales "
-                             "(fold_ln_scale): load the same parameters "
-                             "into a GPT without it to sample")
-        b = text_token_embeds.shape[0]
-        seq_len = c.image_encoded_dim ** 2
-        dev = text_token_embeds.device
-        draws = generator if gumbel_noise is None else None
 
-        text_token_embeds = text_token_embeds[:, : c.max_text_len]
-        text_mask = text_mask[:, : c.max_text_len]
-        ctx2 = torch.cat([text_token_embeds, text_token_embeds], 0).float()
-        mask2 = torch.cat([text_mask, torch.zeros_like(text_mask)], 0)
-        noise_all = None if gumbel_noise is None else gumbel_noise.to(dev)
+@contextlib.contextmanager
+def cast_weights(*modules: nn.Module):
+    """While inside, every Dense under `modules` uses its weight cast once to
+    its compute dtype instead of casting on each call. A feed-forward built
+    with `fold_ln_scale` has the gammas of the LayerNorms before fc1 and fc2
+    folded into their casts, as `Dense`'s `scale` folds them
+    (fc2's gamma this rank's slice under tp; `FeedForward.step_gamma`)."""
+    mods = [m for mod in modules for m in mod.modules()]
+    dense = {m: None for m in mods if isinstance(m, Dense)}
+    for ff in mods:
+        if isinstance(ff, FeedForward) and ff.fold:
+            dense[ff[1]] = ff[0].gamma
+            dense[ff[4]] = tp_slice(ff[3].gamma, 0, ff.tp)
+    try:
+        for m, scale in dense.items():
+            w = m.weight.detach()
+            if scale is not None:
+                w = w * scale.detach()[None, :]
+            m.cast = w.to(m.compute_dtype)
+        yield
+    finally:
+        for m in dense:
+            m.cast = None
 
-        with self.cast_weights():
-            cross_kv = [blk.cross_attn.project_kv(ctx2) for blk in self.blocks]
-            caches = torch.zeros((c.n_layer, 2 * b, seq_len, c.dim_head),
-                                 dtype=self.dtype, device=dev)
-            axial = self._axial_pos()
-            start = self.start_token.expand(2 * b, -1)
-            # the LayerNorm each boundary ends in: every layer's
-            # self-attention norm, then final_norm (f32, for the logits)
-            norms = [blk.self_attn.norm.gamma for blk in self.blocks] + [
-                self.final_norm.gamma]
-            state = dict(
-                pos=torch.zeros((), dtype=torch.long, device=dev),
-                tok_prev=torch.zeros((2 * b,), dtype=torch.long, device=dev),
-                tokens=torch.zeros((b, seq_len), dtype=torch.long,
-                                   device=dev))
 
-            def token_step():
-                pos = state["pos"]
-                at = pos.view(1)
-                prev = self.tok_emb(state["tok_prev"]) + axial.index_select(
-                    0, (pos - 1).clamp(min=0).view(1))
-                x = torch.where(pos == 0, start, prev)[:, None, :]
-                x, x_n = ln_fused.add_ln(x, None, self.init_norm.gamma,
-                                         norms[0], self.dtype)
-                for l, blk in enumerate(self.blocks):
-                    x, x_n = blk.decode(
-                        x, x_n, caches[l], cross_kv[l], mask2, pos,
-                        norms[l + 1],
-                        torch.float32 if l + 1 == c.n_layer else self.dtype)
-                logits2 = self._logits(x_n[:, 0, :])
-                cond, null = logits2[:b], logits2[b:]
-                logits = (cond if cond_scale == 1
-                          else null + (cond - null) * cond_scale)
-                logits = top_k_top_p_filter(logits, top_k, top_p)
-                tok = gumbel_sample(
-                    logits, generator, temperature,
-                    None if noise_all is None
-                    else noise_all.index_select(0, at)[0])
-                state["tok_prev"].copy_(torch.cat([tok, tok], 0))
-                state["tokens"].index_copy_(1, at, tok[:, None])
-                pos.add_(1)
+@contextlib.contextmanager
+def block_route(gpt: GPT, context, mask,
+                ffns: Optional[Sequence[Callable]] = None):
+    """The exact route: `add_ln` into `init_norm` and the first layer's
+    norm, every layer's `CATBlock.decode`, the tied head on `final_norm`'s
+    output, with the Dense weights it uses cast once (`cast_weights`).
+    `ffns`, one callable a layer (`CATBlock.decode`'s `ffn`), replaces the
+    blocks' feed-forwards, whose weights are then not cast (the `qparams`
+    route of `models/decode_engine.py`)."""
+    c, blocks = gpt.cfg, gpt.blocks
+    users = [gpt] if ffns is None else [m for blk in blocks
+                                        for m in (blk.self_attn,
+                                                  blk.cross_attn)]
+    with cast_weights(*users):
+        cross_kv = [blk.cross_attn.project_kv(context) for blk in blocks]
+        caches = torch.zeros((c.n_layer, context.shape[0],
+                              c.image_encoded_dim ** 2, c.dim_head),
+                             dtype=gpt.dtype, device=context.device)
+        # the LayerNorm each boundary ends in: every layer's self-attention
+        # norm, then final_norm (f32, for the logits)
+        norms = [blk.self_attn.norm.gamma for blk in blocks] + [
+            gpt.final_norm.gamma]
 
-            if spans(self.blocks[0].self_attn.tp):
-                if draws is not None and draws.device.type != dev.type:
-                    raise ValueError(f"GPT.sample on {dev} cannot draw from "
-                                     f"a generator on {draws.device}")
-                for i in range(seq_len):   # collectives: no graph, no sync
-                    token_step()
-                    if on_token is not None:
-                        on_token(i)
-            else:
-                run_steps(token_step, seq_len, dev, generator=draws,
-                          after=on_token)
-        g = c.image_encoded_dim
-        return state["tokens"].reshape(b, g, g)
+        def step(x, pos):
+            x, x_n = ln_fused.add_ln(x[:, None], None, gpt.init_norm.gamma,
+                                     norms[0], gpt.dtype)
+            for l, blk in enumerate(blocks):
+                x, x_n = blk.decode(
+                    x, x_n, caches[l], cross_kv[l], mask, pos, norms[l + 1],
+                    torch.float32 if l + 1 == c.n_layer else gpt.dtype,
+                    None if ffns is None else ffns[l])
+            return gpt._logits(x_n[:, 0])
+
+        yield step
+
+
+@torch.inference_mode()
+def sample_loop(gpt: GPT, text_token_embeds, text_mask,
+                route: Callable[..., ContextManager[Callable]], *,
+                generator: Optional[torch.Generator] = None,
+                temperature: float = 1.0, top_k: Optional[int] = None,
+                top_p: float = 1.0, cond_scale: float = 3.0,
+                gumbel_noise: Optional[torch.Tensor] = None,
+                forced_tokens: Optional[torch.Tensor] = None,
+                return_logits: bool = False,
+                on_token: Optional[Callable[[int], None]] = None):
+    """The token loop of every CAT sampler. CFG runs as a 2B batch: rows
+    [0:B] conditional, [B:2B] with an all-false text mask. `route(gpt,
+    context, mask)`, given the doubled context (f32) and mask, is a context
+    manager around the loop that yields its step, (x, pos) -> logits: x
+    (2B, dim) f32 the embedded previous tokens, pos the 0-dim position,
+    (2B, vocab) f32; it owns its caches and cross K/V. Returns the
+    (B, grid, grid) int64 token grid.
+
+    `gumbel_noise` (S, B, vocab) replaces the generator's draws;
+    `on_token(pos)` is called after each token's work is queued. Audit
+    hooks: `forced_tokens` (B, S) teacher-forces the context after each
+    free sample is recorded, so that two engines' logits can be compared;
+    `return_logits=True` also returns the CFG logits (B, S, vocab) before
+    top-k/top-p.
+
+    The token step keeps its state in tensors that it updates in place
+    and makes no host sync, as the JAX package's `lax.scan` over positions
+    (favae_tpu/models/gpt.py:592): on the card `graphs.run_steps` replays
+    one CUDA graph of it, drawing anew from a registered CUDA `generator`
+    (a CPU generator raises). Under a tp group of more than one rank the
+    step holds collectives, which a graph does not capture, and runs
+    eagerly, still with no host sync. On the CPU it runs eagerly."""
+    c = gpt.cfg
+    b = text_token_embeds.shape[0]
+    seq_len = c.image_encoded_dim ** 2
+    dev = text_token_embeds.device
+    draws = generator if gumbel_noise is None else None
+
+    text_token_embeds = text_token_embeds[:, : c.max_text_len]
+    text_mask = text_mask[:, : c.max_text_len]
+    ctx2 = torch.cat([text_token_embeds, text_token_embeds], 0).float()
+    mask2 = torch.cat([text_mask, torch.zeros_like(text_mask)], 0)
+    noise_all = None if gumbel_noise is None else gumbel_noise.to(dev)
+    forced_all = (None if forced_tokens is None
+                  else forced_tokens.to(dev).long())
+    axial = gpt._axial_pos()
+    start = gpt.start_token.expand(2 * b, -1)
+    state = dict(pos=torch.zeros((), dtype=torch.long, device=dev),
+                 tok_prev=torch.zeros((2 * b,), dtype=torch.long, device=dev),
+                 tokens=torch.zeros((b, seq_len), dtype=torch.long,
+                                    device=dev))
+    if return_logits:
+        state["logits"] = torch.zeros((b, seq_len, c.vocab_size),
+                                      dtype=torch.float32, device=dev)
+
+    with route(gpt, ctx2, mask2) as step:
+        def token_step():
+            pos = state["pos"]
+            at = pos.view(1)
+            prev = gpt.tok_emb(state["tok_prev"]) + axial.index_select(
+                0, (pos - 1).clamp(min=0).view(1))
+            logits2 = step(torch.where(pos == 0, start, prev), pos)
+            cond, null = logits2[:b], logits2[b:]
+            logits = (cond if cond_scale == 1
+                      else null + (cond - null) * cond_scale)
+            tok = gumbel_sample(
+                top_k_top_p_filter(logits, top_k, top_p), generator,
+                temperature,
+                None if noise_all is None
+                else noise_all.index_select(0, at)[0])
+            carry = (tok if forced_all is None
+                     else forced_all.index_select(1, at)[:, 0])
+            state["tok_prev"].copy_(torch.cat([carry, carry], 0))
+            state["tokens"].index_copy_(1, at, tok[:, None])
+            if return_logits:
+                state["logits"].index_copy_(1, at, logits[:, None])
+            pos.add_(1)
+
+        if spans(gpt.blocks[0].self_attn.tp):
+            if draws is not None and draws.device.type != dev.type:
+                raise ValueError(f"the token loop on {dev} cannot draw "
+                                 f"from a generator on {draws.device}")
+            for i in range(seq_len):   # collectives: no graph, no sync
+                token_step()
+                if on_token is not None:
+                    on_token(i)
+        else:
+            run_steps(token_step, seq_len, dev, generator=draws,
+                      after=on_token)
+    g = c.image_encoded_dim
+    grid = state["tokens"].reshape(b, g, g)
+    return (grid, state["logits"]) if return_logits else grid
 
 
 def _need(generator: Optional[torch.Generator]) -> torch.Generator:

@@ -127,12 +127,13 @@ class CATModel:
         txt_cond_transformer.py:171-185): CLIP encode, CFG KV-cache
         sampling, FA-VAE decode.
 
-        `quantized=True` routes the token loop through the int8 serving
-        engine (models/decode_engine.py): the whole-step kernel where
-        `supports` says it takes the config, with the prompt batch padded to
-        a multiple of 4 so that the 2B CFG rows are a multiple of 8 (the
-        padding rows repeat the first prompt and are cut from the result),
-        else the int8 FFN kernel with bf16 attention. `gumbel_noise`
+        The token loop is `sample_tokens` (models/decode_engine.py): its
+        exact route, `GPT.sample`'s, or with `quantized=True` an int8 one:
+        the whole-step kernel where `supports` says it takes the config,
+        with the prompt batch padded to a multiple of 4 so that the 2B CFG
+        rows are a multiple of 8 (the padding rows repeat the first prompt
+        and are cut from the result), else the int8 FFN kernel with bf16
+        attention. `gumbel_noise`
         (S, B', vocab), B' the padded batch, replaces the generator's draws.
         `timings`, if given, receives the seconds of the stages ("clip",
         "prepare", "tokens", "decode") and "token_ms", the time of each
@@ -162,11 +163,8 @@ class CATModel:
                     kw["qparams"] = quantize_decode_params(self.gpt)
         mark("prepare")
         with span("cat.tokens"):
-            if quantized:
-                grid = sample_tokens(self.cfg.gpt, self.gpt, embeds, mask,
-                                     dtype=self.gpt.dtype, **kw)[:b]
-            else:
-                grid = self.gpt.sample(embeds, mask, **kw)
+            grid = sample_tokens(self.cfg.gpt, self.gpt, embeds, mask,
+                                 **kw)[:b]
         mark("tokens")
         with span("cat.decode"):
             imgs = self.favae.decode_code(grid)

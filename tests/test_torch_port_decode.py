@@ -98,8 +98,8 @@ def test_exact_samplers_match_jax_token_for_token(small, top_k, top_p,
     noise = jax_gumbel_noise(key, 16, 2, 64)
     te, tm = torch.from_numpy(embeds), torch.from_numpy(mask)
     sampled = ours.sample(te, tm, gumbel_noise=noise, **kw)
-    engine = tengine.sample_tokens(ours.cfg, ours, te, tm, dtype=torch.float32,
-                                   gumbel_noise=noise, **kw)
+    engine = tengine.sample_tokens(ours.cfg, ours, te, tm, gumbel_noise=noise,
+                                   **kw)
     assert sampled.shape == (2, 4, 4) and sampled.dtype == torch.int64
     np.testing.assert_array_equal(sampled.numpy(), np.asarray(ref))
     assert torch.equal(engine, sampled)
@@ -112,8 +112,7 @@ def test_sample_tokens_audit_hooks(small):
     _, _, _, ours = small
     embeds, mask = map(torch.from_numpy, _inputs(2))
     noise = jax_gumbel_noise(jax.random.PRNGKey(11), 16, 2, 64)
-    kw = dict(top_k=8, top_p=0.9, cond_scale=3.0, dtype=torch.float32,
-              gumbel_noise=noise)
+    kw = dict(top_k=8, top_p=0.9, cond_scale=3.0, gumbel_noise=noise)
     grid, logits = tengine.sample_tokens(ours.cfg, ours, embeds, mask,
                                          return_logits=True, **kw)
     assert logits.shape == (2, 16, 64)
@@ -140,8 +139,7 @@ def test_samplers_draw_from_the_generator_and_call_on_token(small):
     a = ours.sample(embeds, mask, generator=torch.Generator().manual_seed(3),
                     top_k=8, on_token=seen.append)
     b = tengine.sample_tokens(ours.cfg, ours, embeds, mask, top_k=8,
-                              generator=torch.Generator().manual_seed(3),
-                              dtype=torch.float32)
+                              generator=torch.Generator().manual_seed(3))
     c = ours.sample(embeds, mask, generator=torch.Generator().manual_seed(4),
                     top_k=8)
     assert seen == list(range(16))

@@ -61,7 +61,7 @@ def route(request):
         tkw = {"qparams": tengine.quantize_decode_params(ours)}
     else:
         jkw, tkw = {"dtype": jnp.float32}, {}
-    return request.param, cfg, params, ours, jkw, {"dtype": dtype_t, **tkw}
+    return request.param, cfg, params, ours, jkw, tkw
 
 
 def _inputs(b, seed=1):

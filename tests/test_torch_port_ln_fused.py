@@ -10,12 +10,11 @@ residual add as `MultiQueryAttention._out`, `FeedForward.forward` and
 out that way (the same logits and tokens under fixed gumbel noise). The
 routing: `GPT.sample` calls the ops a boundary at a time and never launches
 on the CPU; `GPT.forward` never calls them; a spanning tp group keeps its
-split statistics of the feed-forward's middle (two gloo ranks); a GPT with
-`fold_ln_scale` refuses to sample. The `card` cases hold
-the kernel to its plain version within a rounding of the stored dtype, and
-count its launches across a CUDA-graph replay. This file imports no JAX (on
-the card: python -m pytest tests/test_torch_port_ln_fused.py -m card
---noconftest).
+split statistics of the feed-forward's middle (two gloo ranks). The
+`card` cases hold the kernel to its plain version within a rounding of the
+stored dtype, and count its launches across a CUDA-graph replay. This file
+imports no JAX (on the card: python -m pytest
+tests/test_torch_port_ln_fused.py -m card --noconftest).
 """
 
 import numpy as np
@@ -259,20 +258,6 @@ def test_a_spanning_tp_group_keeps_the_plain_sequence(tmp_path):
                               "split_layer_norm": seq * L}
         assert r["launches"] == 0
         assert torch.equal(r["tokens"], want)
-
-
-def test_sample_raises_under_fold_ln_scale():
-    """The token step does not fold the LayerNorms' gammas into the
-    weights: a GPT built with `fold_ln_scale` refuses to sample, and the
-    same parameters sample in a GPT without it."""
-    gpt = _gpt(torch.float32)
-    folded = tgpt.GPT(tcfg.GPTConfig(**SMALL, fold_ln_scale=True),
-                      dtype=torch.float32).eval()
-    folded.load_state_dict(gpt.state_dict())
-    te, tm, noise = _inputs(2)
-    with pytest.raises(ValueError, match="fold_ln_scale"):
-        folded.sample(te, tm, gumbel_noise=noise)
-    assert gpt.sample(te, tm, gumbel_noise=noise).shape == (2, 4, 4)
 
 
 def test_the_wrapper_raises_on_what_it_does_not_take():

@@ -195,7 +195,7 @@ def test_token_steps_make_no_host_sync(small, gate, route):
             else:
                 _, _, ours, fused = gate
                 grid = tengine.sample_tokens(
-                    ours.cfg, ours, te, tm, fused=fused, dtype=torch.bfloat16,
+                    ours.cfg, ours, te, tm, fused=fused,
                     on_token=seen.append, **kw)
         assert grid.shape == (4, 4, 4) and seen == list(range(16))
     with pytest.raises(AssertionError, match="host sync"):
@@ -221,12 +221,52 @@ def test_gpt_sample_matches_jax_and_the_engine(small, top_k, top_p,
     seen = []
     sampled = ours.sample(te, tm, gumbel_noise=noise, on_token=seen.append,
                           **kw)
-    engine = tengine.sample_tokens(ours.cfg, ours, te, tm, dtype=torch.float32,
-                                   gumbel_noise=noise, **kw)
+    engine = tengine.sample_tokens(ours.cfg, ours, te, tm, gumbel_noise=noise,
+                                   **kw)
     assert sampled.shape == (2, 4, 4) and sampled.dtype == torch.int64
     assert seen == list(range(16))
     np.testing.assert_array_equal(sampled.numpy(), ref)
     assert torch.equal(engine, sampled)
+
+
+@pytest.fixture(scope="module")
+def folded():
+    """The small f32 GPT with `fold_ln_scale`, every LayerNorm's gamma drawn
+    away from its init of ones (a gamma of ones folds to nothing)."""
+    kw = dict(SMALL, fold_ln_scale=True)
+    cfg, model, params, _ = _models(kw, jnp.float32, torch.float32)
+    rng = np.random.RandomState(4)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: (v + 0.3 * rng.randn(*v.shape).astype(np.float32)
+                         if path[-1].key == "scale" else v), params)
+    ours = tgpt.GPT(tcfg.GPTConfig(**kw), dtype=torch.float32).eval()
+    ours.load_state_dict(gpt_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                             params)))
+    return cfg, model, params, ours
+
+
+@pytest.mark.parametrize("top_k,top_p,cond_scale", [(None, 1.0, 3.0),
+                                                    (8, 0.9, 1.0)])
+def test_gpt_sample_with_fold_ln_scale_matches_jax(folded, top_k, top_p,
+                                                   cond_scale):
+    """f32, B 2, a GPT built with `fold_ln_scale` in both packages:
+    GPT.sample under JAX's gumbel noise gives JAX's GPT.sample tokens, token
+    for token. The step applies the attention norms' gammas and folds the
+    feed-forward's into fc1's and fc2's casts, as JAX's decode does."""
+    cfg, model, params, ours = folded
+    assert cfg.fold_ln_scale and ours.cfg.fold_ln_scale
+    embeds, mask = _inputs(2, seed=3)
+    key = jax.random.PRNGKey(29)
+    kw = dict(temperature=1.0, top_k=top_k, top_p=top_p, cond_scale=cond_scale)
+    ref = np.asarray(model.apply({"params": params}, jnp.asarray(embeds),
+                                 jnp.asarray(mask), rng=key,
+                                 method=jgpt.GPT.sample, **kw))
+    noise = _jax_noise(key, 16, 2, 64)
+    te, tm = torch.from_numpy(embeds), torch.from_numpy(mask)
+    sampled = ours.sample(te, tm, gumbel_noise=noise, **kw)
+    assert sampled.shape == (2, 4, 4) and sampled.dtype == torch.int64
+    np.testing.assert_array_equal(sampled.numpy(), ref)
+    assert all(blk.ff[1].cast is None for blk in ours.blocks)
 
 
 def test_fused_route_matches_the_jax_fused_engine(gate):
@@ -248,7 +288,7 @@ def test_fused_route_matches_the_jax_fused_engine(gate):
         return_logits=True, **kw, **jkw)
     noise = _jax_noise(key, 16, 4, 64)
     te, tm = torch.from_numpy(embeds), torch.from_numpy(mask)
-    tkw = dict(fused=fused, dtype=torch.bfloat16, gumbel_noise=noise, **kw)
+    tkw = dict(fused=fused, gumbel_noise=noise, **kw)
     free = tengine.sample_tokens(ours.cfg, ours, te, tm, **tkw)
     _, logits = tengine.sample_tokens(
         ours.cfg, ours, te, tm, return_logits=True,
