@@ -33,7 +33,11 @@ Phases (any failure exits non-zero):
    against its plain op sequence in both forms at gpt2_medium's attention
    (8 rows, 16 heads, a 256-row cache at positions 0, 128 and 255, 77 + 1
    text keys) and 24 heads, timed at position 255 beside its bytes' bound
-   and the plain sequence eager and graphed;
+   and the plain sequence eager and graphed; `rows_gemm`'s kernel (row 10)
+   against its plain version at every product of gpt2_medium's and
+   gpt2_large's token step at 2, 8, 9 and 16 rows, timed at 8 and 16 rows
+   hot and cold, beside its bytes' bound and cuBLAS graphed, and every
+   plan's shared memory as the kernel's library counts it;
 4. recon slice: `favae_tpu_torch.cli.eval_favae` at celebahq_expe5, batch
    16, 256 px, bf16, seeded random weights, with the kernels' launch counts
    zeroed just before and read just after;
@@ -61,13 +65,18 @@ Phases (any failure exits non-zero):
    step runs as a CUDA graph with launches counted per replay), counts
    zeroed before and read after each, ms a token beside the card's name
    and power limit (the exact runs 1 + 4 a layer `add_ln` launches and 2 a
-   layer `mqa_decode` launches a token); `GPT.sample` at gpt2_medium
+   layer `mqa_decode` launches and 7 a layer `rows_gemm` launches a token,
+   5 a layer on the FFN-only route); `GPT.sample` at gpt2_medium
    through the graph, one seed twice and another once, and the fused
    route replayed against the
    same step called eagerly (the same tokens and logits, bit for bit);
    `sample_tokens` at gpt2_large through the graph on its exact route (the
    FFN-only route's yardstick) and its FFN-only route, one seed twice and
-   another once; then the same weights, text embeddings and gumbel noise
+   another once; `GPT.sample` at gpt2_medium with the token step's
+   products through `rows_gemm` and through cuBLAS, in turns, and whether
+   a captured
+   graph of two launches holds a programmatic edge; then the same weights,
+   text embeddings and gumbel noise
    through each engine on the card and on the CPU at 2 layers;
 8. CAT train slice: `favae_tpu_torch.cli.train_cat` at cat_celebahq
    (gpt2_medium, CLIP ViT-L/14 text, f16 cosine FA-VAE), batch 16, 256 px,
@@ -1479,6 +1488,239 @@ def mqa_decode_kernel_row(rows, launches):
             **rows["self"], "cross": rows["cross"]}
 
 
+def rows_gemm_a_token(cfg):
+    """`rows_gemm` launches of one exact token step: a layer's seven
+    products (self-attention to_q, to_kv, to_out; cross-attention to_q,
+    to_out; fc1, fc2). The cross-attention's K/V of the text, 616 rows in
+    the serve slice, keeps cuBLAS."""
+    return 7 * cfg.n_layer
+
+
+def rows_gemm_shapes():
+    """{"<model>.<product>": (K, N)} of the token step's products at
+    gpt2_medium and gpt2_large (the cross-attention's to_q and to_out are
+    the self-attention's shapes)."""
+    from favae_tpu_torch import config as C
+    shapes = {}
+    for name in ("gpt2_medium", "gpt2_large"):
+        c = getattr(C, name)(vocab_size=1024)
+        d, inner = c.n_embed, c.n_head * c.dim_head
+        for proj, kn in (("to_q", (d, inner)), ("to_kv", (d, c.dim_head)),
+                         ("to_out", (inner, d)), ("fc1", (d, 4 * d)),
+                         ("fc2", (4 * d, d))):
+            shapes[f"{name}.{proj}"] = kn
+    return shapes
+
+
+def rows_gemm_bound(x, w, want):
+    """What the kernel's f32 sum and the plain version's, in two orders of
+    the same bf16 products, each rounded once to bf16, may differ by: K
+    eps32 of the sum of |products| each, and a bf16 rounding of the output
+    each (tests/test_torch_port_rows_gemm.py::sum_bound)."""
+    import torch
+    k = x.shape[-1]
+    return (torch.finfo(torch.bfloat16).eps * want.float().abs()
+            + 2 * k * torch.finfo(torch.float32).eps
+            * (x.float().abs() @ w.float().abs().t()))
+
+
+def check_rows_gemm(rows_list=(2, 8, 9, 16), timed_rows=(8, 16)):
+    """Row 10: `rows_linear` against its plain version on the card at every
+    product of gpt2_medium's and gpt2_large's token step, at 2 to 16 rows
+    (`rows_gemm.MAX_ROWS`): one launch a call, the plain version's dtype
+    and shape, within `rows_gemm_bound`, the same bits twice. At 8 and 16
+    rows each shape is
+    timed in CUDA graphs against cuBLAS (`F.linear`, as the token step ran
+    it before the kernel): hot (20 calls of one weight) and cold (a graph
+    cycling through COLD_BYTES of distinct weight copies, so nothing is
+    found in L2, as in the token step), beside the bytes' bound. Every
+    plan's `Plan.smem()` is the library's `favae_rows_gemm_smem`. Raises on
+    a wrong result or a count that differs."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from favae_tpu_torch import _build
+    from favae_tpu_torch.ops import rows_gemm as rg
+    rows_out, worst, bad = {}, {}, []
+    rng = np.random.RandomState(60)
+    smem = _build.library("rows_gemm").favae_rows_gemm_smem
+    smem.restype = ctypes.c_longlong
+    with torch.inference_mode():
+        for name, (k, n) in rows_gemm_shapes().items():
+            w = torch.from_numpy((0.02 * rng.randn(n, k)).astype(
+                np.float32)).cuda().bfloat16()
+            for rows in rows_list:
+                x = torch.from_numpy(rng.randn(rows, k).astype(
+                    np.float32)).cuda().bfloat16()
+                before = rg.LAUNCHES["rows_gemm"]
+                got = rg.rows_linear(x, w)
+                launched = rg.LAUNCHES["rows_gemm"] - before
+                again = rg.rows_linear(x, w)
+                want = rg.rows_linear_plain(x, w)
+                err = (got.float() - want.float()).abs()
+                key = f"{name} rows={rows}"
+                worst[key] = (err / rows_gemm_bound(x, w, want)).max().item()
+                p = rg.plan(rows, k, n, rg.sm_count(x.device))
+                if not (launched == 1 and worst[key] <= 1
+                        and got.dtype == want.dtype
+                        and got.shape == want.shape
+                        and torch.equal(got, again)
+                        and p.smem() == smem(p.nb, p.kc, p.depth)):
+                    bad.append((key, launched, worst[key], p.smem(),
+                                smem(p.nb, p.kc, p.depth)))
+                if rows not in timed_rows:
+                    continue
+                y = torch.empty((rows, n), dtype=torch.bfloat16,
+                                device="cuda")
+                copies = cold_copies(w.numel() * 2)
+                ws = [w.clone() for _ in range(copies)]
+
+                def kernel(wi):
+                    return lambda: rg.launch(x, wi, y)
+
+                row = {"shape": f"rows={rows} K={k} N={n} bf16",
+                       "plan": list(rg.plan(rows, k, n)),
+                       "max_bound_ratio": worst[key],
+                       "ms": time_ms(lambda: rg.rows_linear(x, w)),
+                       "device_ms": device_ms(kernel(w)),
+                       "cold_ms": cold_ms(lambda i: kernel(ws[i]), copies),
+                       "cold_copies": copies,
+                       "plain_ms": time_ms(lambda: rg.rows_linear_plain(x, w)),
+                       "library_ms": time_ms(lambda: F.linear(x, w)),
+                       "library_device_ms": device_ms(lambda: F.linear(x, w)),
+                       "library_cold_ms": cold_ms(
+                           lambda i: lambda: F.linear(x, ws[i]), copies)}
+                del ws
+                row["bound_ms"], row["bound_by"] = bound(
+                    rg.launch_bytes(rows, k, n), 2 * rows * k * n,
+                    BF16_FLOP_PER_S)
+                rows_out[key] = row
+                log("rows_gemm", json.dumps(row))
+    log("rows_gemm bound ratios", json.dumps(worst))
+    if bad:
+        raise AssertionError(f"rows_gemm against its plain version (case, "
+                             f"launches, bound ratio, the plan's shared "
+                             f"memory and the library's): {bad}")
+    return rows_out
+
+
+def rows_gemm_token_step(gpt_name="gpt2_medium", b=4, seed=9):
+    """`GPT.sample` at gpt2_medium, 8 CFG rows, through the token-step
+    graph two ways in one process, twice in turns: the kernel as the port
+    launches it, and cuBLAS for every product (`rows_gemm.engages` off, as
+    the parent ran it): median ms a token (CUDA events after each token) and
+    the launches of each. Then the edges of a captured graph of two
+    launches (`programmatic_edges`)."""
+    import torch
+    from favae_tpu_torch import config as C
+    from favae_tpu_torch.models.gpt import GPT
+    from favae_tpu_torch.ops import rows_gemm as rg
+    cfg = getattr(C, gpt_name)(vocab_size=1024, n_cond_embed=768)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        gpt = GPT(cfg, dtype=torch.bfloat16).eval()
+    gpt.cuda()
+    rng = np.random.RandomState(seed)
+    embeds = torch.from_numpy(rng.randn(b, 77, 768).astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.rand(b, 77) > 0.3).cuda()
+    kw = dict(top_k=500, top_p=0.95, cond_scale=3.0)
+    engages = rg.engages
+    out = {"card": nvidia_smi()}
+
+    def sample(tag):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        _, res = timed_tokens(lambda on_token: gpt.sample(
+            embeds, mask, generator=gen, on_token=on_token, **kw))
+        out[tag] = {k: res[k] for k in ("median_ms_per_token",
+                                        "ms_per_token", "launches")}
+
+    try:
+        with torch.inference_mode():
+            for turn in ("a", "b"):
+                sample(f"kernel_{turn}")
+                rg.engages = lambda x, w: False
+                sample(f"cublas_{turn}")
+                rg.engages = engages
+    finally:
+        rg.engages = engages
+    out["programmatic_edges"] = programmatic_edges()
+    log("rows-gemm-token-step", json.dumps(out))
+    seq = cfg.image_encoded_dim ** 2
+    if (out["kernel_a"]["launches"].get("rows_gemm")
+            != rows_gemm_a_token(cfg) * seq
+            or out["cublas_a"]["launches"].get("rows_gemm")):
+        raise AssertionError(f"rows_gemm launches in the token step: {out}")
+    del gpt
+    torch.cuda.empty_cache()
+    return out
+
+
+def programmatic_edges():
+    """The edges of a captured graph of two `rows_gemm` launches by type
+    (CUDA's cudaGraphGetEdges_v2 through torch's CUDA runtime), or why
+    they could not be read."""
+    import ctypes
+    import glob
+    import os
+    import torch
+    from favae_tpu_torch.ops import rows_gemm as rg
+    x = torch.randn(8, 1536, device="cuda").bfloat16()
+    w = torch.randn(1024, 1536, device="cuda").bfloat16()
+    y = torch.empty(8, 1024, device="cuda", dtype=torch.bfloat16)
+    rg.launch(x, w, y)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        return f"no keep_graph in this torch: {e}"
+    with torch.cuda.graph(graph):
+        rg.launch(x, w, y)
+        rg.launch(x, w, y)
+    if not hasattr(graph, "raw_cuda_graph"):
+        return "no raw_cuda_graph in this torch"
+    libs = sorted(glob.glob(os.path.join(os.path.dirname(torch.__file__),
+                                         "..", "nvidia", "cuda_runtime",
+                                         "lib", "libcudart.so*")))
+    try:
+        rt = ctypes.CDLL(libs[0] if libs else "libcudart.so")
+        fn = rt.cudaGraphGetEdges_v2
+    except (OSError, AttributeError) as e:
+        return f"no cudaGraphGetEdges_v2: {e}"
+
+    class EdgeData(ctypes.Structure):
+        _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                    ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    if fn(raw, None, None, None, ctypes.byref(n)) != 0:
+        return "cudaGraphGetEdges_v2 failed"
+    frm = (ctypes.c_void_p * max(n.value, 1))()
+    to = (ctypes.c_void_p * max(n.value, 1))()
+    data = (EdgeData * max(n.value, 1))()
+    if fn(raw, frm, to, data, ctypes.byref(n)) != 0:
+        return "cudaGraphGetEdges_v2 failed"
+    types = [data[i].type for i in range(n.value)]
+    # 0: cudaGraphDependencyTypeDefault, 1: cudaGraphDependencyTypeProgrammatic
+    return {"edges": n.value, "programmatic": types.count(1),
+            "default": types.count(0)}
+
+
+def rows_gemm_kernel_row(rows, launches):
+    """The `kernels` line's entry for row 10, gpt2_medium's fc1 at 8 rows,
+    with the launches of the serve slice's exact run."""
+    return {"name": "rows_gemm", "route": "cuda",
+            "source": "favae_tpu_torch/csrc/rows_gemm.cu",
+            "replaces": "cuBLAS's 8-row products of the token step, which "
+                        "XLA fuses (favae_tpu/models/gpt.py)",
+            "launches": launches, "on_main_path": True,
+            **rows["gpt2_medium.fc1 rows=8"],
+            "others": {k: {f: v[f] for f in ("device_ms", "cold_ms",
+                                             "library_cold_ms", "bound_ms")}
+                       for k, v in rows.items()}}
+
+
 def int8_kernel_checks():
     """matmul_int8 at the four CAT projection shapes, ffn_block_int8 at
     both widths and 2, 6, 8 and 16 rows (and on two streams at once),
@@ -1935,15 +2177,18 @@ SERVE_ARGS = ["--prompt", "a smiling woman with glasses",
               "--out", str(ROOT / "output" / "chip_smoke_serve.npz")]
 # (name, extra flags, expected launches of decode_step, ffn_int8, add_ln
 # (1 + 4 a layer a token on the exact route, add_ln_a_token; 1 + 3 on the
-# FFN-only one, whose int8 block replaces gelu_ln) and mqa_decode (2 a layer
-# a token on both, mqa_decode_a_token))
-SERVE_RUNS = (("exact", [], 0, 0, (1 + 4 * 24) * 256, 2 * 24 * 256),
-              ("fused", ["--quantized"], 256, 0, 0, 0),
+# FFN-only one, whose int8 block replaces gelu_ln), mqa_decode (2 a layer
+# a token on both, mqa_decode_a_token) and rows_gemm (7 a layer a token on
+# the exact route, rows_gemm_a_token; the 5 attention products on the
+# FFN-only one))
+SERVE_RUNS = (("exact", [], 0, 0, (1 + 4 * 24) * 256, 2 * 24 * 256,
+               7 * 24 * 256),
+              ("fused", ["--quantized"], 256, 0, 0, 0, 0),
               ("ffn_int8", ["--quantized", "--gpt_name", "gpt2_large"],
-               0, 36 * 256, (1 + 3 * 36) * 256, 2 * 36 * 256),
+               0, 36 * 256, (1 + 3 * 36) * 256, 2 * 36 * 256, 5 * 36 * 256),
               # the yardstick of the FFN-only route: the same model, exact
               ("exact_large", ["--gpt_name", "gpt2_large"], 0, 0,
-               (1 + 4 * 36) * 256, 2 * 36 * 256))
+               (1 + 4 * 36) * 256, 2 * 36 * 256, 7 * 36 * 256))
 # serve cross-check bounds, card against CPU at gpt2_medium width, 2 layers,
 # 4x4 tokens, on CFG logits of up to 7.7. f32 (TF32 off): the two differ by
 # summation order only (5.7e-6 measured on an H100). bf16 routes: both sides
@@ -1976,10 +2221,11 @@ def int8_counts():
 
 
 def serve_counts():
-    """The launch counts of the serving kernels: the int8 ones, add_ln and
-    mqa_decode."""
-    from favae_tpu_torch.ops import ln_fused, mqa_decode
-    return (*int8_counts(), ln_fused.LAUNCHES, mqa_decode.LAUNCHES)
+    """The launch counts of the serving kernels: the int8 ones, add_ln,
+    mqa_decode and rows_gemm."""
+    from favae_tpu_torch.ops import ln_fused, mqa_decode, rows_gemm
+    return (*int8_counts(), ln_fused.LAUNCHES, mqa_decode.LAUNCHES,
+            rows_gemm.LAUNCHES)
 
 
 def serve_slice():
@@ -1992,7 +2238,8 @@ def serve_slice():
     log(f"tokenizer word pattern compiled with: {word_pattern()[1]}")
     (ROOT / "output").mkdir(exist_ok=True)
     runs, launches = {}, {}
-    for name, extra, want_step, want_ffn, want_ln, want_mqa in SERVE_RUNS:
+    for (name, extra, want_step, want_ffn, want_ln, want_mqa,
+         want_rows) in SERVE_RUNS:
         for counts in (vq.LAUNCHES, gn.LAUNCHES, *serve_counts()):
             for k in counts:
                 counts[k] = 0
@@ -2023,12 +2270,12 @@ def serve_slice():
                 and 0 <= toks.min() and toks.max() < 1024):
             raise AssertionError(f"serve {name}: bad images or tokens")
         if (got["decode_step"], got["ffn_int8"], got["matmul_int8"],
-                got["add_ln"], got["mqa_decode"]) != (
-                    want_step, want_ffn, 0, want_ln, want_mqa):
+                got["add_ln"], got["mqa_decode"], got["rows_gemm"]) != (
+                    want_step, want_ffn, 0, want_ln, want_mqa, want_rows):
             raise AssertionError(
                 f"serve {name}: launches {got}, expected decode_step "
                 f"{want_step}, ffn_int8 {want_ffn}, matmul_int8 0, add_ln "
-                f"{want_ln}, mqa_decode {want_mqa}")
+                f"{want_ln}, mqa_decode {want_mqa}, rows_gemm {want_rows}")
         if not (got["gn_stats"] and got["gn_stats"] == got["gn_apply"]):
             raise AssertionError(f"serve {name}: the FA-VAE decode launched "
                                  f"GroupNorm kernels {got}")
@@ -2036,7 +2283,8 @@ def serve_slice():
     return runs, {"decode_step": launches["fused"]["decode_step"],
                   "ffn_int8": launches["ffn_int8"]["ffn_int8"],
                   "matmul_int8": 0, "add_ln": launches["exact"]["add_ln"],
-                  "mqa_decode": launches["exact"]["mqa_decode"]}
+                  "mqa_decode": launches["exact"]["mqa_decode"],
+                  "rows_gemm": launches["exact"]["rows_gemm"]}
 
 
 def timed_tokens(sample):
@@ -2073,8 +2321,9 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
     rows, seeded random weights and text embeddings, top-k 500, top-p 0.95,
     scale 3: `GPT.sample` through the CUDA graph of its token step with one
     seed twice and another once (`add_ln_a_token` launches of `ln_fused`'s
-    kernel and `mqa_decode_a_token` of `mqa_decode`'s a token, every replay
-    counted, and no other hand-written kernel), a CPU generator refused;
+    kernel, `mqa_decode_a_token` of `mqa_decode`'s and `rows_gemm_a_token`
+    of `rows_gemm`'s a token, every replay counted, and no other
+    hand-written kernel), a CPU generator refused;
     then the fused route of `sample_tokens` through the graph, 256
     `decode_step` launches
     (`decode_replay` holds its kernel's replays against eager calls)."""
@@ -2125,7 +2374,8 @@ def serve_sample_graph(gpt_name="gpt2_medium", b=4, seed=9):
     want = {"decode_step": seq}
     if (out["gpt_sample_graph"]["launches"]
             != {"add_ln": add_ln_a_token(cfg) * seq,
-                "mqa_decode": mqa_decode_a_token(cfg) * seq}
+                "mqa_decode": mqa_decode_a_token(cfg) * seq,
+                "rows_gemm": rows_gemm_a_token(cfg) * seq}
             or out["fused_graph"]["launches"] != want
             or not (out["same_seed_same_tokens"]
                     and out["other_seed_other_tokens"]
@@ -2183,10 +2433,12 @@ def serve_graph_routes(gpt_name="gpt2_large", b=4, seed=9):
     # both routes run CATBlock.decode: the FFN-only route without gelu_ln
     # (its feed-forward and residual are the int8 block)
     exact = {"add_ln": add_ln_a_token(cfg) * seq,
-             "mqa_decode": mqa_decode_a_token(cfg) * seq}
+             "mqa_decode": mqa_decode_a_token(cfg) * seq,
+             "rows_gemm": rows_gemm_a_token(cfg) * seq}
     want = {"ffn_int8": cfg.n_layer * seq,
             "add_ln": (1 + 3 * cfg.n_layer) * seq,
-            "mqa_decode": mqa_decode_a_token(cfg) * seq}
+            "mqa_decode": mqa_decode_a_token(cfg) * seq,
+            "rows_gemm": 5 * cfg.n_layer * seq}
     if (out["exact_graph"]["launches"] != exact
             or out["ffn_int8_graph"]["launches"] != want
             or not (out["same_seed_same_tokens"]
@@ -2303,13 +2555,15 @@ def cat_train_slice(decode_gn):
     import torch
     from favae_tpu_torch import config as C
     from favae_tpu_torch.cli import train_cat
-    from favae_tpu_torch.ops import gn, ln_fused, mqa_decode, vq
+    from favae_tpu_torch.ops import gn, ln_fused, mqa_decode, rows_gemm, vq
     from favae_tpu_torch.train.cat_trainer import CATTrainer
     # a preview samples once on the exact route: GPT.sample's token steps
     gpt_cfg = C.gpt2_medium(vocab_size=1024)
     per_sample_ln = add_ln_a_token(gpt_cfg) * gpt_cfg.image_encoded_dim ** 2
     per_sample_mqa = (mqa_decode_a_token(gpt_cfg)
                       * gpt_cfg.image_encoded_dim ** 2)
+    per_sample_rows = (rows_gemm_a_token(gpt_cfg)
+                       * gpt_cfg.image_encoded_dim ** 2)
 
     def rows_1_4():
         torch.cuda.synchronize()
@@ -2365,6 +2619,7 @@ def cat_train_slice(decode_gn):
         others = {k: v for c in int8_counts() for k, v in c.items()}
         ln = ln_fused.LAUNCHES["add_ln"]
         mqa = mqa_decode.LAUNCHES["mqa_decode"]
+        prods = rows_gemm.LAUNCHES["rows_gemm"]
         hist = out["history"]
         losses = [h["loss_gpt"] for h in hist]
         res = {"start_epoch": out["start_epoch"], "steps": len(hist),
@@ -2419,14 +2674,16 @@ def cat_train_slice(decode_gn):
                 and got_previews == want_previews
                 and ln == len(previews) * per_sample_ln
                 and mqa == len(previews) * per_sample_mqa
+                and prods == len(previews) * per_sample_rows
                 and not any(launches[k] for k in ("gn_bwd_sums",
                                                   "gn_bwd_dx"))
                 and not any(others.values())):
             raise AssertionError(
                 f"cat train {name}: launches {launches} ({steps} in the "
                 f"steps), previews {got_previews}, add_ln {ln}, mqa_decode "
-                f"{mqa} and {others}, expected add_ln {per_sample_ln} and "
-                f"mqa_decode {per_sample_mqa} a preview, "
+                f"{mqa}, rows_gemm {prods} and {others}, expected add_ln "
+                f"{per_sample_ln}, mqa_decode {per_sample_mqa} and rows_gemm "
+                f"{per_sample_rows} a preview, "
                 f"{expect} ({expect_steps} in the steps) and previews "
                 f"{want_previews} of {decode_gn} GroupNorm calls a decode: "
                 f"rows 1-3 only, the same in each of {encodes} encodes, one "
@@ -3905,6 +4162,7 @@ def main():
     int8_checks = int8_kernel_checks()
     ln_rows = check_add_ln()
     mqa_rows = check_mqa_decode()
+    rows_gemm_rows = check_rows_gemm()
 
     phase_s["3_kernels"] = time.perf_counter() - t_phase
 
@@ -3999,6 +4257,7 @@ def main():
     torch.cuda.empty_cache()
     serve_sample_graph()
     serve_graph_routes()
+    rows_gemm_token_step()
     serve_cross_check()
     phase_s["7_serve"] = time.perf_counter() - t_phase
 
@@ -4044,7 +4303,8 @@ def main():
         train["launches"], recon_launches, cat_step_launches)
         + int8_kernel_rows(int8_checks, serve_launches)
         + [add_ln_kernel_row(ln_rows, serve_launches["add_ln"]),
-           mqa_decode_kernel_row(mqa_rows, serve_launches["mqa_decode"])]
+           mqa_decode_kernel_row(mqa_rows, serve_launches["mqa_decode"]),
+           rows_gemm_kernel_row(rows_gemm_rows, serve_launches["rows_gemm"])]
         + phase9_kernel_rows(vq9, gn9, bwd9, launches9),
         "group_norm_act_per_batch": gn_total,
         "phase10_launches_rank0": dist10["launches_rank0"],

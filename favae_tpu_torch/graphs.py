@@ -39,19 +39,21 @@ STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 def launch_counts() -> List[Dict[str, int]]:
     """The `LAUNCHES` dicts of every module with a hand-written kernel."""
     from favae_tpu_torch.ops import (decode_step_kernel, ffn_int8, gn,
-                                     int8_matmul, ln_fused, mqa_decode, vq)
+                                     int8_matmul, ln_fused, mqa_decode,
+                                     rows_gemm, vq)
     return [vq.LAUNCHES, gn.LAUNCHES, ffn_int8.LAUNCHES,
             decode_step_kernel.LAUNCHES, int8_matmul.LAUNCHES,
-            ln_fused.LAUNCHES, mqa_decode.LAUNCHES]
+            ln_fused.LAUNCHES, mqa_decode.LAUNCHES, rows_gemm.LAUNCHES]
 
 
 def work_counts() -> Dict[str, Dict[str, float]]:
     """The work counters by group: `vq` (`ops.vq.WORK`), `decode_step`
-    (`ops.decode_step_kernel.WORK`), `codec` (`models.blocks.STATS`)."""
+    (`ops.decode_step_kernel.WORK`), `rows_gemm` (`ops.rows_gemm.WORK`),
+    `codec` (`models.blocks.STATS`)."""
     from favae_tpu_torch.models import blocks
-    from favae_tpu_torch.ops import decode_step_kernel, vq
+    from favae_tpu_torch.ops import decode_step_kernel, rows_gemm, vq
     return {"vq": vq.WORK, "decode_step": decode_step_kernel.WORK,
-            "codec": blocks.STATS}
+            "rows_gemm": rows_gemm.WORK, "codec": blocks.STATS}
 
 
 def _counted() -> List[Dict[str, float]]:

@@ -68,7 +68,7 @@ from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
 from favae_tpu_torch.graphs import run_steps
-from favae_tpu_torch.ops import ln_fused, mqa_decode
+from favae_tpu_torch.ops import ln_fused, mqa_decode, rows_gemm
 from favae_tpu_torch.ops.mqa_decode import NEG_INF
 from favae_tpu_torch.parallel.mesh import all_reduce_sum_grad, spans
 from favae_tpu_torch.parallel.sharding import (copy_to_tp, reduce_from_tp,
@@ -121,10 +121,12 @@ class FixedBetaLayerNorm(nn.Module):
 class Dense(nn.Linear):
     """Bias-free Linear computed in `compute_dtype` from an f32 master
     weight. `cast` holds the weight already cast while a sampler runs; a
-    forward that records gradients raises while it is set. `scale`, a
-    per-input-feature vector, is folded into the f32 weight first
-    (`W * scale[None, :]` in the (out, in) layout; favae_tpu's ScaledDense,
-    gpt.py:83-99)."""
+    forward that records gradients raises while it is set. With `cast` in
+    bf16, a CUDA input of at most `rows_gemm.MAX_ROWS` rows (a token step's
+    projections) takes `ops/rows_gemm.py`'s kernel (`rows_gemm.engages`);
+    everything else `F.linear`. `scale`, a per-input-feature vector, is
+    folded into the f32 weight first (`W * scale[None, :]` in the (out, in)
+    layout; favae_tpu's ScaledDense, gpt.py:83-99)."""
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype):
@@ -138,6 +140,8 @@ class Dense(nn.Linear):
                 raise RuntimeError("Dense.cast is a sampler's detached copy: "
                                    "leave cast_weights() before training")
             w = self.cast
+            if rows_gemm.engages(x, w):
+                return rows_gemm.rows_linear(x.to(self.compute_dtype), w)
         elif scale is not None:
             w = (self.weight * scale[None, :]).to(self.compute_dtype)
         else:

@@ -46,9 +46,10 @@ EPS = 1e-5
 # kernel launches since the last reset (graphs.launch_counts)
 LAUNCHES = {"add_ln": 0}
 
-# triton.language, bound by _jit() at the first launch; the kernel body
-# resolves `tl` through this module's globals when Triton compiles it
-tl = None
+# triton.language and its CUDA extras, bound by _jit() at the first launch;
+# the kernel body resolves `tl` and `gdc` through this module's globals
+# when Triton compiles it
+tl = gdc = None
 _JIT = {}
 
 
@@ -56,6 +57,11 @@ def _add_layer_norm_kernel(h_ptr, x_ptr, g_out_ptr, g_next_ptr, y_ptr,
                            out_ptr, D, eps, GELU: "tl.constexpr",
                            NORM_H: "tl.constexpr", RESIDUAL: "tl.constexpr",
                            BLOCK: "tl.constexpr"):
+    # launched as a programmatic dependent: the next kernel may start now
+    # (a `rows_gemm` product streams its weights meanwhile); nothing is
+    # read before the kernel before this one has completed
+    gdc.gdc_launch_dependents()
+    gdc.gdc_wait()
     # program r: row r of every tensor, D columns held in BLOCK registers;
     # GELU is gelu_ln's form, which stores no y, the others add_ln's
     row = tl.program_id(0).to(tl.int64) * D
@@ -87,12 +93,13 @@ def _add_layer_norm_kernel(h_ptr, x_ptr, g_out_ptr, g_next_ptr, y_ptr,
 
 
 def _jit():
-    global tl
+    global tl, gdc
     if not _JIT:
         import triton
         import triton.language
+        import triton.language.extra.cuda
 
-        tl = triton.language
+        tl, gdc = triton.language, triton.language.extra.cuda
         _JIT["add_ln"] = triton.jit(_add_layer_norm_kernel)
     return _JIT
 
@@ -151,7 +158,7 @@ def _launch(h, x, g_out, g_next, y, out, *, gelu: bool) -> None:
             h, h if x is None else x, g_next if g_out is None else g_out,
             g_next, h if y is None else y, out, d, EPS, GELU=gelu,
             NORM_H=g_out is not None, RESIDUAL=x is not None, BLOCK=block,
-            num_warps=4 if block <= 2048 else 8)
+            num_warps=4 if block <= 2048 else 8, launch_pdl=True)
     LAUNCHES["add_ln"] += 1
 
 

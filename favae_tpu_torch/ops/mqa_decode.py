@@ -62,9 +62,10 @@ NEG_INF = -1e9  # large negative in place of -finfo.max (bf16-safe)
 # kernel launches since the last reset (graphs.launch_counts)
 LAUNCHES = {"mqa_decode": 0}
 
-# triton.language, bound by _jit() at the first launch; the kernel body
-# resolves `tl` through this module's globals when Triton compiles it
-tl = None
+# triton.language and its CUDA extras, bound by _jit() at the first launch;
+# the kernel body resolves `tl` and `gdc` through this module's globals
+# when Triton compiles it
+tl = gdc = None
 _JIT = {}
 
 
@@ -74,6 +75,11 @@ def _mqa_decode_kernel(q_ptr, kv_ptr, keys_ptr, pos_ptr, null_ptr,
                        SELF: "tl.constexpr", DH: "tl.constexpr",
                        BLOCK_H: "tl.constexpr", BLOCK_S: "tl.constexpr",
                        PREC: "tl.constexpr"):
+    # launched as a programmatic dependent: the next kernel may start now
+    # (a `rows_gemm` product streams its weights meanwhile); nothing is
+    # read before the kernel before this one has completed
+    gdc.gdc_launch_dependents()
+    gdc.gdc_wait()
     # program b: row b of the CFG batch, every head against its S key rows
     # (the cache, or the text's kv) and the null slot; SELF is
     # self_attend's form, which writes the cache and adds the bias
@@ -125,12 +131,13 @@ def _mqa_decode_kernel(q_ptr, kv_ptr, keys_ptr, pos_ptr, null_ptr,
 
 
 def _jit():
-    global tl
+    global tl, gdc
     if not _JIT:
         import triton
         import triton.language
+        import triton.language.extra.cuda
 
-        tl = triton.language
+        tl, gdc = triton.language, triton.language.extra.cuda
         _JIT["mqa_decode"] = triton.jit(_mqa_decode_kernel)
     return _JIT
 
@@ -211,7 +218,7 @@ def _launch(q, kv, keys, pos, null_kv, table, pos_indices, mask, *,
             SELF=self_form, DH=dh,
             BLOCK_H=max(16, 1 << (heads - 1).bit_length()), BLOCK_S=block_s,
             PREC="ieee" if q.dtype == torch.float32 else "tf32",
-            num_warps=8 if block_s >= 256 else 4)
+            num_warps=8 if block_s >= 256 else 4, launch_pdl=True)
     LAUNCHES["mqa_decode"] += 1
     return out
 

@@ -175,8 +175,8 @@ def test_counters_hold_every_group():
         for k, v in stats.items():
             assert got[f"{group}.{k}"] == v
     assert {k.split(".")[0] for k in got} == {
-        "launches", "vq", "decode_step", "codec", "collectives", "data",
-        "graphs"}
+        "launches", "vq", "decode_step", "rows_gemm", "codec",
+        "collectives", "data", "graphs"}
     assert all(isinstance(v, (int, float)) for v in got.values())
 
 
