@@ -49,11 +49,12 @@ def launch_counts() -> List[Dict[str, int]]:
 def work_counts() -> Dict[str, Dict[str, float]]:
     """The work counters by group: `vq` (`ops.vq.WORK`), `decode_step`
     (`ops.decode_step_kernel.WORK`), `rows_gemm` (`ops.rows_gemm.WORK`),
-    `codec` (`models.blocks.STATS`)."""
+    `ffn_int8` (`ops.ffn_int8.WORK`), `codec` (`models.blocks.STATS`)."""
     from favae_tpu_torch.models import blocks
-    from favae_tpu_torch.ops import decode_step_kernel, rows_gemm, vq
+    from favae_tpu_torch.ops import decode_step_kernel, ffn_int8, rows_gemm, vq
     return {"vq": vq.WORK, "decode_step": decode_step_kernel.WORK,
-            "rows_gemm": rows_gemm.WORK, "codec": blocks.STATS}
+            "rows_gemm": rows_gemm.WORK, "ffn_int8": ffn_int8.WORK,
+            "codec": blocks.STATS}
 
 
 def _counted() -> List[Dict[str, float]]:

@@ -39,8 +39,11 @@ from favae_tpu_torch.ops.int8_matmul import (DEFAULT_SMS, check_cuda,
                                              launch_on, quantize_weight,
                                              sm_count, stream_counters)
 
-# kernel launches since the last reset; chip_smoke.py zeroes and reads it
+# kernel launches since the last reset; chip_smoke.py zeroes and reads it;
+# the bytes the calls had to move (`launch_bytes`), counted on the plain
+# path on the CPU too (graphs.work_counts)
 LAUNCHES = {"ffn_int8": 0}
+WORK = {"bytes": 0}
 
 # csrc/ffn_int8.cu
 TILE_N = 128         # columns of a work item
@@ -66,6 +69,13 @@ def prepare_ffn_weights(w1: torch.Tensor, gamma_mid: torch.Tensor,
     w2q, s2 = quantize_weight(gamma_mid.float()[:, None] * w2.float())
     c = w2q.float().sum(dim=0, keepdim=True) * s2
     return dict(w1q=w1q, s1=s1, w2q=w2q, s2=s2, c=c)
+
+
+def launch_bytes(rows: int, k: int, f: int) -> int:
+    """What a call must move: the int8 W1 (K, F) and W2' (F, K), their f32
+    scales (F and K) and colsum correction (K), the f32 gamma_in (K), and
+    the bf16 x read and y written (rows, K) once each."""
+    return 2 * k * f + 4 * (f + 3 * k) + 4 * rows * k
 
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor,
@@ -286,6 +296,8 @@ def ffn_block_int8(x: torch.Tensor, gamma_in: torch.Tensor,
     On the card K and F must be multiples of 128, K at most 1536 and F at
     most 4 K's worth (6144), any row count."""
     if x.device.type == "cpu":
+        WORK["bytes"] += launch_bytes(x.shape[0], x.shape[-1],
+                                      prep["w1q"].shape[1])
         return ffn_block_int8_plain(x, gamma_in, prep, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ffn_block_int8: unsupported device {x.device}")
@@ -330,4 +342,5 @@ def ffn_block_int8(x: torch.Tensor, gamma_in: torch.Tensor,
         raise RuntimeError(f"ffn_block_int8: CUDA launch failed with error "
                            f"{err}")
     LAUNCHES["ffn_int8"] += 1
+    WORK["bytes"] += launch_bytes(rows, k, f)
     return y

@@ -43,8 +43,8 @@ def counters() -> Dict[str, float]:
     """Every counter the port keeps, as `{"group.name": number}`:
     `launches.<kernel>` (the kernel modules' `LAUNCHES`) and the work
     beside them (`graphs.work_counts`: `vq.macs`, `decode_step.bytes`,
-    `rows_gemm.bytes`, `codec.attn_calls`, `codec.attn_scores`), exact
-    across graph replays;
+    `rows_gemm.bytes`, `ffn_int8.bytes`, `codec.attn_calls`,
+    `codec.attn_scores`), exact across graph replays;
     `collectives.*` (`parallel.mesh.STATS`), `data.*`
     (`data.pipeline.STATS`) and `graphs.*` (`graphs.STATS`). The counters
     are plain module dicts, always on: subtract two snapshots."""

@@ -10,7 +10,8 @@ are the kernel's, and these tests hold Python copies of them (`work_items`,
 compares with the built library's own (`ffn_int8.kernel_layout`). The last
 tests run the kernel's order of arithmetic (partials of the chunks added in
 ascending order, h's sums per 128-column tile) in plain PyTorch against
-`ffn_block_int8_plain`.
+`ffn_block_int8_plain`; then the work counter (`WORK`, `launch_bytes`), and
+on the card (`-m card --noconftest`) its count across a graph's replays.
 """
 
 import numpy as np
@@ -181,3 +182,88 @@ def test_kernel_order_matches_the_plain_version(k, rows):
     tol = 2.0 ** -8 * ref.abs() + 2.0 ** -9 * ref.abs().max()
     assert ((ours - ref).abs() <= tol).all()
     assert (ours != x.float()).float().mean() > 0.5   # the block did work
+
+
+def _prep(k, seed=3):
+    rng = np.random.RandomState(seed)
+    t = lambda *s, sc=1.0: torch.from_numpy((rng.randn(*s) * sc)
+                                            .astype(np.float32))
+    return (1 + 0.1 * t(k), fi.prepare_ffn_weights(
+        t(k, 4 * k, sc=0.05), 1 + 0.1 * t(4 * k), t(4 * k, k, sc=0.05)))
+
+
+@pytest.mark.parametrize("rows", [2, 8])
+@pytest.mark.parametrize("k", WIDTHS)
+def test_launch_bytes_are_the_tensors_a_call_reads_and_writes(k, rows):
+    """The prepared int8 weights, their scales and correction, gamma_in, x
+    and y: 13.18 MB at gpt2_large's K 1280 and 8 rows (PERF.md's 3.94 us
+    bound at 3.35 TB/s)."""
+    g_in, prep = _prep(k)
+    x = torch.zeros(rows, k, dtype=torch.bfloat16)
+    want = (sum(t.numel() * t.element_size() for t in prep.values())
+            + g_in.numel() * 4 + 2 * x.numel() * x.element_size())
+    assert fi.launch_bytes(rows, k, 4 * k) == want
+    if (k, rows) == (1280, 8):
+        assert want == 13_184_000
+
+
+def test_plain_path_counts_its_bytes_and_no_launch():
+    g_in, prep = _prep(1280)
+    x = torch.randn(6, 1280).bfloat16()
+    before = fi.LAUNCHES["ffn_int8"], fi.WORK["bytes"]
+    fi.ffn_block_int8(x, g_in, prep)
+    fi.ffn_block_int8(x[:2], g_in, prep)
+    assert fi.LAUNCHES["ffn_int8"] == before[0]
+    assert fi.WORK["bytes"] - before[1] == (fi.launch_bytes(6, 1280, 5120)
+                                            + fi.launch_bytes(2, 1280, 5120))
+
+
+def test_work_counts_include_the_kernel():
+    from favae_tpu_torch import graphs
+    assert any(c is fi.LAUNCHES for c in graphs.launch_counts())
+    assert graphs.work_counts()["ffn_int8"] is fi.WORK
+
+
+# on the card (python -m pytest tests/test_torch_port_ffn_plan.py -m card
+# --noconftest)
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on the card: python -m pytest "
+                    "tests/test_torch_port_ffn_plan.py -m card "
+                    "--noconftest)")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.card
+def test_sample_counts_launches_and_bytes_across_graph_replays(card):
+    """`sample_tokens` on the int8 FFN route, attention wider than the
+    residual as at gpt2_large (4 heads of 64 over 128), through
+    `graphs.run_steps`: one launch a layer a token (the eager first and
+    each replay) and `ffn_int8.bytes` exactly `launch_bytes` of each."""
+    from favae_tpu_torch import config as tcfg
+    from favae_tpu_torch.models.decode_engine import (quantize_decode_params,
+                                                      sample_tokens)
+    from favae_tpu_torch.models.gpt import GPT
+    cfg = tcfg.GPTConfig(vocab_size=64, n_layer=2, n_embed=128, n_head=4,
+                         dim_head=64, n_cond_embed=32, image_encoded_dim=4,
+                         max_text_len=7, dropout=0.0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        gpt = GPT(cfg, dtype=torch.bfloat16).eval().to(card)
+    rng = np.random.RandomState(1)
+    te = torch.from_numpy(rng.randn(4, 7, 32).astype(np.float32)).to(card)
+    tm = torch.from_numpy(rng.rand(4, 7) > 0.2).to(card)
+    tm[:, 0] = True
+    qparams = quantize_decode_params(gpt)
+    before = fi.LAUNCHES["ffn_int8"], fi.WORK["bytes"]
+    with torch.inference_mode():
+        grid = sample_tokens(cfg, gpt, te, tm, qparams=qparams, top_k=8,
+                             generator=torch.Generator(card).manual_seed(2))
+    torch.cuda.synchronize()
+    assert grid.shape == (4, 4, 4)
+    launches = fi.LAUNCHES["ffn_int8"] - before[0]
+    assert launches == 16 * cfg.n_layer
+    assert fi.WORK["bytes"] - before[1] == launches * fi.launch_bytes(
+        8, 128, 512)

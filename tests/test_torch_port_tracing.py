@@ -175,7 +175,7 @@ def test_counters_hold_every_group():
         for k, v in stats.items():
             assert got[f"{group}.{k}"] == v
     assert {k.split(".")[0] for k in got} == {
-        "launches", "vq", "decode_step", "rows_gemm", "codec",
+        "launches", "vq", "decode_step", "rows_gemm", "ffn_int8", "codec",
         "collectives", "data", "graphs"}
     assert all(isinstance(v, (int, float)) for v in got.values())
 
