@@ -8,7 +8,10 @@ eagerly on a side stream: it is the warm-up (lazy set-up, cuBLAS workspaces
 and the kernels' per-stream arrival counters happen outside any capture).
 The step is then captured once on that stream and the graph replayed on the
 current stream for the other n - 1 calls. A capture that fails raises: there
-is no eager fallback on the card.
+is no eager fallback on the card. `run_steps` returns the captured `Graph`,
+which a caller may keep and `run` again for a later run of the same step
+(a serving plan, `models/serving_plan.py`), with the graph of the set-up
+such a run repeats first (`before`) captured beside it.
 
 Kernel launch counts (`LAUNCHES` of the kernel modules) and the work
 counters beside them (`work_counts`) are counted on the host where a
@@ -80,20 +83,72 @@ def add_counts(taken: List[Dict[str, float]]) -> None:
             c[k] += v
 
 
+class Graph:
+    """A captured step and the launch and work counts of one replay; with
+    `before`, the graph of what a later run sets up before its first call
+    (`run_steps`' `before`)."""
+
+    def __init__(self, graph: "torch.cuda.CUDAGraph",
+                 per_replay: List[Dict[str, float]],
+                 before: Optional["Graph"] = None):
+        self.graph, self.per_replay, self.before = graph, per_replay, before
+
+    def replay(self, calls: range,
+               after: Optional[Callable[[int], None]] = None) -> None:
+        """Replay the step once for each call i of `calls`, `after(i)` once
+        it is queued."""
+        for i in calls:
+            with span("graphs.replay"):
+                self.graph.replay()
+                add_counts(self.per_replay)
+                if after is not None:
+                    after(i)
+            STATS["replays"] += 1
+
+    def run(self, n: int,
+            after: Optional[Callable[[int], None]] = None) -> None:
+        """A later run of n calls: `before`'s graph, where there is one,
+        then the step's n times."""
+        if self.before is not None:
+            self.before.replay(range(1))
+        self.replay(range(n), after)
+
+
+def _capture(fn: Callable[[], None], side: "torch.cuda.Stream",
+             generator: Optional[torch.Generator]) -> Graph:
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+
+    def capture():
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+
+    return Graph(graph, counts_of(capture))
+
+
 def run_steps(step: Callable[[], None], n: int, device: torch.device,
               generator: Optional[torch.Generator] = None,
-              after: Optional[Callable[[int], None]] = None) -> None:
+              after: Optional[Callable[[int], None]] = None,
+              before: Optional[Callable[[], None]] = None
+              ) -> Optional[Graph]:
     """Call `step()` n times, `after(i)` once call i is queued. `generator`:
     a CUDA generator the step draws from, registered with the graph so that
     each replay draws anew from it (the default generator needs no
-    registration)."""
+    registration). `before`, where given, is called before the first call:
+    set-up that a later run repeats (and a repeat leaves as it was); on a
+    card its graph is captured too, after the step's, and replayed before a
+    later run's calls (`Graph.run`). Returns the graph captured (None on
+    the CPU or for n 1)."""
     device = torch.device(device)
     if device.type != "cuda":
+        if before is not None:
+            before()
         for i in range(n):
             step()
             if after is not None:
                 after(i)
-        return
+        return None
     if generator is not None and generator.device.type != "cuda":
         raise ValueError(f"run_steps: a graph on {device} cannot draw from a "
                          f"generator on {generator.device}")
@@ -102,29 +157,20 @@ def run_steps(step: Callable[[], None], n: int, device: torch.device,
     with span("graphs.first"):
         side.wait_stream(current)
         with torch.cuda.stream(side):
+            if before is not None:
+                before()
             step()
         current.wait_stream(side)
         if after is not None:
             after(0)
     if n == 1:
-        return
+        return None
     t0 = time.perf_counter()
     with span("graphs.capture"):
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-
-        def capture():
-            with torch.cuda.graph(graph, stream=side):
-                step()
-
-        per_replay = counts_of(capture)
-    STATS["captures"] += 1
+        kept = _capture(step, side, generator)
+        if before is not None:
+            kept.before = _capture(before, side, None)
+    STATS["captures"] += 1 if before is None else 2
     STATS["capture_s"] += time.perf_counter() - t0
-    for i in range(1, n):
-        with span("graphs.replay"):
-            graph.replay()
-            add_counts(per_replay)
-            if after is not None:
-                after(i)
-        STATS["replays"] += 1
+    kept.replay(range(1, n), after)
+    return kept

@@ -21,7 +21,9 @@ int8 feed-forward or over the whole-step kernel. Its scan over positions is
 one token step that keeps its state in tensors updated in place (the
 position a 0-dim tensor, the per-layer KV caches written at it) and makes
 no host sync, so that on the card one CUDA graph of it serves every
-position (`graphs.run_steps`). In `block_route`'s step each sublayer
+position (`graphs.run_steps`); the GPT keeps a loop, with its graph, as a
+serving plan for later calls with the same key (`models/serving_plan.py`).
+In `block_route`'s step each sublayer
 boundary (the out-norm, the residual add, the next LayerNorm) and the
 feed-forward's middle are one call of `ops/ln_fused.py`, and each attention
 sublayer's chain between its projections one call of `ops/mqa_decode.py`:
@@ -30,7 +32,7 @@ one kernel launch each on the card, the plain op sequence on the CPU
 
 Master weights are f32; projections run in `dtype` (bf16 by default) as the
 JAX package's Dense layers do. A sampler casts each weight it uses once, not
-once a token (`cast_weights`).
+once a token (`weight_casts`), and its serving plans keep the casts.
 
 Training (`forward(..., train=True)`, favae_tpu/models/gpt.py:203-529):
 dropout on the inputs of `to_q` and `to_kv` (separate masks; the FFN has
@@ -57,8 +59,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import (Callable, ContextManager, List, Optional, Sequence,
-                    Union)
+from typing import (Callable, ContextManager, Dict, List, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -67,7 +69,8 @@ import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from favae_tpu_torch.config import GPTConfig
-from favae_tpu_torch.graphs import run_steps
+from favae_tpu_torch.graphs import Graph, run_steps
+from favae_tpu_torch.models import serving_plan
 from favae_tpu_torch.ops import ln_fused, mqa_decode, rows_gemm
 from favae_tpu_torch.ops.mqa_decode import NEG_INF
 from favae_tpu_torch.parallel.mesh import all_reduce_sum_grad, spans
@@ -577,60 +580,93 @@ class GPT(nn.Module):
     def sample(self, text_token_embeds, text_mask, **kw):
         """Autoregressive sampling with KV caches (functionally the
         reference's gpt_ca.py:343-367, which re-forwards the prefix for every
-        token): `sample_loop` over `block_route`, with its keywords."""
-        return sample_loop(self, text_token_embeds, text_mask, block_route,
-                           **kw)
+        token): `sample_loop` over `EXACT` (`block_route`), with its
+        keywords."""
+        return sample_loop(self, text_token_embeds, text_mask, EXACT, **kw)
 
 
-@contextlib.contextmanager
-def cast_weights(*modules: nn.Module):
-    """While inside, every Dense under `modules` uses its weight cast once to
-    its compute dtype instead of casting on each call. A feed-forward built
-    with `fold_ln_scale` has the gammas of the LayerNorms before fc1 and fc2
-    folded into their casts, as `Dense`'s `scale` folds them
-    (fc2's gamma this rank's slice under tp; `FeedForward.step_gamma`)."""
+def weight_casts(*modules: nn.Module) -> Dict[Dense, torch.Tensor]:
+    """Every Dense weight under `modules` cast once to its compute dtype, by
+    module. A feed-forward built with `fold_ln_scale` has the gammas of the
+    LayerNorms before fc1 and fc2 folded into their casts, as `Dense`'s
+    `scale` folds them (fc2's gamma this rank's slice under tp;
+    `FeedForward.step_gamma`)."""
     mods = [m for mod in modules for m in mod.modules()]
     dense = {m: None for m in mods if isinstance(m, Dense)}
     for ff in mods:
         if isinstance(ff, FeedForward) and ff.fold:
             dense[ff[1]] = ff[0].gamma
             dense[ff[4]] = tp_slice(ff[3].gamma, 0, ff.tp)
-    try:
-        for m, scale in dense.items():
-            w = m.weight.detach()
-            if scale is not None:
-                w = w * scale.detach()[None, :]
-            m.cast = w.to(m.compute_dtype)
-        yield
-    finally:
-        for m in dense:
-            m.cast = None
+    casts = {}
+    for m, scale in dense.items():
+        w = m.weight.detach()
+        if scale is not None:
+            w = w * scale.detach()[None, :]
+        casts[m] = w.to(m.compute_dtype)
+    return casts
 
 
 @contextlib.contextmanager
-def block_route(gpt: GPT, context, mask,
-                ffns: Optional[Sequence[Callable]] = None):
-    """The exact route: `add_ln` into `init_norm` and the first layer's
-    norm, every layer's `CATBlock.decode`, the tied head on `final_norm`'s
-    output, with the Dense weights it uses cast once (`cast_weights`).
-    `ffns`, one callable a layer (`CATBlock.decode`'s `ffn`), replaces the
-    blocks' feed-forwards, whose weights are then not cast (the `qparams`
-    route of `models/decode_engine.py`)."""
-    c, blocks = gpt.cfg, gpt.blocks
-    users = [gpt] if ffns is None else [m for blk in blocks
-                                        for m in (blk.self_attn,
-                                                  blk.cross_attn)]
-    with cast_weights(*users):
-        cross_kv = [blk.cross_attn.project_kv(context) for blk in blocks]
-        caches = torch.zeros((c.n_layer, context.shape[0],
-                              c.image_encoded_dim ** 2, c.dim_head),
-                             dtype=gpt.dtype, device=context.device)
-        # the LayerNorm each boundary ends in: every layer's self-attention
-        # norm, then final_norm (f32, for the logits)
-        norms = [blk.self_attn.norm.gamma for blk in blocks] + [
-            gpt.final_norm.gamma]
+def using_casts(casts: Dict[Dense, torch.Tensor]):
+    """While inside, each Dense of `casts` uses its cast weight
+    (`Dense.cast`) instead of casting on each call; on leaving, each has
+    what it had before."""
+    before = {m: m.cast for m in casts}
+    try:
+        for m, w in casts.items():
+            m.cast = w
+        yield
+    finally:
+        for m, w in before.items():
+            m.cast = w
 
-        def step(x, pos):
+
+def cast_weights(*modules: nn.Module) -> ContextManager[None]:
+    """While inside, every Dense under `modules` uses its weight cast once to
+    its compute dtype (`weight_casts`) instead of casting on each call."""
+    return using_casts(weight_casts(*modules))
+
+
+class Route(NamedTuple):
+    """A route of `sample_loop`. `name` keys its serving plans
+    (`models/serving_plan.py`); `casts(gpt)` gives the modules whose Dense
+    weights its step uses cast (`weight_casts`); `build(gpt, context, mask,
+    casts, prepared)`, over the doubled context (f32) and mask, which it
+    keeps and reads again, those casts and the route's prepared weights
+    (`sample_loop`'s `prepared`), returns (step, refill): step, (x, pos) ->
+    logits, x (2B, dim) f32 the embedded previous tokens, pos the 0-dim
+    position, logits (2B, vocab) f32, writes the route's caches in place;
+    refill() recomputes from the context and mask what the step reads of
+    them (the cross K/V) and zeroes the caches."""
+    name: str
+    casts: Callable[["GPT"], Sequence[nn.Module]]
+    build: Callable[..., Tuple[Callable, Callable[[], None]]]
+
+
+def block_route(gpt: GPT, context, mask, casts: Dict[Dense, torch.Tensor],
+                prepared=None, ffns: Optional[Sequence[Callable]] = None):
+    """The exact route (`EXACT`): `add_ln` into `init_norm` and the first
+    layer's norm, every layer's `CATBlock.decode`, the tied head on
+    `final_norm`'s output, the Dense weights it uses from `casts`. `ffns`,
+    one callable a layer (`CATBlock.decode`'s `ffn`), replaces the blocks'
+    feed-forwards (the `qparams` route of `models/decode_engine.py`)."""
+    c, blocks = gpt.cfg, gpt.blocks
+
+    def cross_kv_now():
+        with using_casts(casts):
+            return [blk.cross_attn.project_kv(context) for blk in blocks]
+
+    cross_kv = cross_kv_now()
+    caches = torch.zeros((c.n_layer, context.shape[0],
+                          c.image_encoded_dim ** 2, c.dim_head),
+                         dtype=gpt.dtype, device=context.device)
+    # the LayerNorm each boundary ends in: every layer's self-attention
+    # norm, then final_norm (f32, for the logits)
+    norms = [blk.self_attn.norm.gamma for blk in blocks] + [
+        gpt.final_norm.gamma]
+
+    def step(x, pos):
+        with using_casts(casts):
             x, x_n = ln_fused.add_ln(x[:, None], None, gpt.init_norm.gamma,
                                      norms[0], gpt.dtype)
             for l, blk in enumerate(blocks):
@@ -640,13 +676,163 @@ def block_route(gpt: GPT, context, mask,
                     None if ffns is None else ffns[l])
             return gpt._logits(x_n[:, 0])
 
-        yield step
+    def refill():
+        for kv, now in zip(cross_kv, cross_kv_now()):
+            kv.copy_(now)
+        caches.zero_()
+
+    return step, refill
+
+
+EXACT = Route("exact", lambda gpt: [gpt], block_route)
+
+
+class TokenLoop:
+    """The token loop of one request shape and one set of sampler settings
+    over a route: the doubled context and mask the route's step reads
+    (`load` copies a later request's in), the loop state (the position,
+    the previous tokens, the grid) and the token step over them, which
+    updates its state in place and makes no host sync, and the refill of
+    what the route derives from the context, its caches and the state; on
+    the card, once run, the captured graphs of both (`graphs.Graph`). A
+    serving plan (`models/serving_plan.py`) is one, kept across
+    requests."""
+
+    def __init__(self, gpt: GPT, route: Route, context, mask,
+                 casts: Dict[Dense, torch.Tensor], prepared,
+                 sampler: Tuple, *, noise: Optional[torch.Tensor] = None,
+                 forced: Optional[torch.Tensor] = None,
+                 return_logits: bool = False):
+        c, dev = gpt.cfg, context.device
+        rows, seq_len = context.shape[0], c.image_encoded_dim ** 2
+        b = rows // 2
+        top_k, top_p, temperature, cond_scale = sampler
+        self.dev, self.seq_len, self.side = dev, seq_len, c.image_encoded_dim
+        self.context, self.mask = context, mask
+        step, self.refill_route = route.build(gpt, context, mask, casts,
+                                              prepared)
+        self.noised = noise is not None
+        self.graph: Optional[Graph] = None
+        self.own: Optional[torch.Generator] = None
+        self.draws: Optional[torch.Generator] = None
+        state = self.state = dict(
+            pos=torch.zeros((), dtype=torch.long, device=dev),
+            tok_prev=torch.zeros((rows,), dtype=torch.long, device=dev),
+            tokens=torch.zeros((b, seq_len), dtype=torch.long, device=dev))
+        if return_logits:
+            state["logits"] = torch.zeros((b, seq_len, c.vocab_size),
+                                          dtype=torch.float32, device=dev)
+        noise_all = None if noise is None else noise.to(dev)
+        forced_all = None if forced is None else forced.to(dev).long()
+        axial = gpt._axial_pos()
+        start = gpt.start_token.expand(rows, -1)
+
+        def token_step():
+            pos = state["pos"]
+            at = pos.view(1)
+            prev = gpt.tok_emb(state["tok_prev"]) + axial.index_select(
+                0, (pos - 1).clamp(min=0).view(1))
+            logits2 = step(torch.where(pos == 0, start, prev), pos)
+            cond, null = logits2[:b], logits2[b:]
+            logits = (cond if cond_scale == 1
+                      else null + (cond - null) * cond_scale)
+            tok = gumbel_sample(
+                top_k_top_p_filter(logits, top_k, top_p), self.draws,
+                temperature,
+                None if noise_all is None
+                else noise_all.index_select(0, at)[0])
+            carry = (tok if forced_all is None
+                     else forced_all.index_select(1, at)[:, 0])
+            state["tok_prev"].copy_(torch.cat([carry, carry], 0))
+            state["tokens"].index_copy_(1, at, tok[:, None])
+            if return_logits:
+                state["logits"].index_copy_(1, at, logits[:, None])
+            pos.add_(1)
+
+        self.token_step = token_step
+
+    def refill(self) -> None:
+        """Recompute what the route's step reads of the context and mask,
+        zero its caches and the loop state: what a kept loop's run sets up
+        before its first token."""
+        self.refill_route()
+        for t in self.state.values():
+            t.zero_()
+
+    def load(self, context, mask) -> None:
+        """A later request's doubled context and mask, copied in; its run
+        refills from them (`refill`)."""
+        self.context.copy_(context)
+        self.mask.copy_(mask)
+
+    def run(self, generator: Optional[torch.Generator],
+            on_token: Optional[Callable[[int], None]] = None, *,
+            eager: bool = False, keep: bool = False) -> None:
+        """Every token of a request, drawing from `generator`, `on_token(i)`
+        once token i is queued: `eager`, a call of the step each (a tp
+        group's collectives, which a graph does not capture); else through
+        `graphs.run_steps`. With `keep` (a serving plan) the run refills
+        first, and on the card the graphs are kept and replayed in a later
+        run (`_replay`)."""
+        draws = None if self.noised else generator
+        if eager:
+            if draws is not None and draws.device.type != self.dev.type:
+                raise ValueError(f"the token loop on {self.dev} cannot draw "
+                                 f"from a generator on {draws.device}")
+            self.draws = generator
+            for i in range(self.seq_len):   # collectives: no graph, no sync
+                self.token_step()
+                if on_token is not None:
+                    on_token(i)
+        elif keep and self.dev.type == "cuda":
+            self._replay(generator, on_token)
+            return
+        else:
+            self.draws = generator
+            run_steps(self.token_step, self.seq_len, self.dev, generator=draws,
+                      after=on_token, before=self.refill if keep else None)
+        self.draws = None
+
+    def _replay(self, generator: Optional[torch.Generator],
+                on_token: Optional[Callable[[int], None]]) -> None:
+        """A kept loop's run on the card: the first run captures the token
+        step's graph and the refill's (`run_steps`' `before`); a later run
+        replays the refill's, then the token step's for every token
+        (`graphs.Graph.run`). The
+        graphs draw from a generator of the loop's own, registered with
+        them at the capture: the caller's state (the default generator's
+        where `generator` is None) is moved into that one before the first
+        token and back out after the last, so that the caller's generator
+        gives and advances as graphs captured for this request would make
+        it."""
+        caller = (torch.cuda.default_generators[self.dev.index]
+                  if generator is None else generator)
+        if caller.device.type != "cuda":
+            raise ValueError(f"the token loop's graph on {self.dev} cannot "
+                             f"draw from a generator on {caller.device}")
+        if self.own is None:
+            self.own = self.draws = torch.Generator(device=self.dev)
+        self.own.set_state(caller.get_state())
+        if self.graph is None:
+            self.graph = run_steps(self.token_step, self.seq_len, self.dev,
+                                   generator=self.own, after=on_token,
+                                   before=self.refill)
+        else:
+            self.graph.run(self.seq_len, on_token)
+        caller.set_state(self.own.get_state())
+
+    def result(self):
+        """The (B, grid, grid) int64 token grid, a copy, and with
+        `return_logits` the CFG logits (B, S, vocab)."""
+        grid = self.state["tokens"].reshape(-1, self.side, self.side).clone()
+        if "logits" in self.state:
+            return grid, self.state["logits"]
+        return grid
 
 
 @torch.inference_mode()
-def sample_loop(gpt: GPT, text_token_embeds, text_mask,
-                route: Callable[..., ContextManager[Callable]], *,
-                generator: Optional[torch.Generator] = None,
+def sample_loop(gpt: GPT, text_token_embeds, text_mask, route: Route, *,
+                prepared=None, generator: Optional[torch.Generator] = None,
                 temperature: float = 1.0, top_k: Optional[int] = None,
                 top_p: float = 1.0, cond_scale: float = 3.0,
                 gumbel_noise: Optional[torch.Tensor] = None,
@@ -654,12 +840,11 @@ def sample_loop(gpt: GPT, text_token_embeds, text_mask,
                 return_logits: bool = False,
                 on_token: Optional[Callable[[int], None]] = None):
     """The token loop of every CAT sampler. CFG runs as a 2B batch: rows
-    [0:B] conditional, [B:2B] with an all-false text mask. `route(gpt,
-    context, mask)`, given the doubled context (f32) and mask, is a context
-    manager around the loop that yields its step, (x, pos) -> logits: x
-    (2B, dim) f32 the embedded previous tokens, pos the 0-dim position,
-    (2B, vocab) f32; it owns its caches and cross K/V. Returns the
-    (B, grid, grid) int64 token grid.
+    [0:B] conditional, [B:2B] with an all-false text mask. `route` (a
+    `Route`) builds the step, (x, pos) -> logits, over the doubled context
+    and mask; `prepared`, the route's prepared weights (`quantize_decode_
+    params`', `prepare_fused_decode`'s; None on the exact route). Returns
+    the (B, grid, grid) int64 token grid.
 
     `gumbel_noise` (S, B, vocab) replaces the generator's draws;
     `on_token(pos)` is called after each token's work is queued. Audit
@@ -674,67 +859,50 @@ def sample_loop(gpt: GPT, text_token_embeds, text_mask,
     one CUDA graph of it, drawing anew from a registered CUDA `generator`
     (a CPU generator raises). Under a tp group of more than one rank the
     step holds collectives, which a graph does not capture, and runs
-    eagerly, still with no host sync. On the CPU it runs eagerly."""
-    c = gpt.cfg
-    b = text_token_embeds.shape[0]
-    seq_len = c.image_encoded_dim ** 2
-    dev = text_token_embeds.device
-    draws = generator if gumbel_noise is None else None
+    eagerly, still with no host sync. On the CPU it runs eagerly.
 
+    A call keeps its loop in the GPT's serving plans (`models/serving_
+    plan.py`): the route's Dense casts and `prepared`, where the GPT's
+    store made it (`serving_plan.weights`), once for every key of the
+    route, and the `TokenLoop`, with the graph on the card, for the key of
+    the route, the device, the dtype, the doubled context's shape and the
+    sampler settings. A later call with the key copies its context and mask
+    in and replays two graphs: the refill of the cross K/V with the zeroing
+    of the caches and the state, then the token step's for every token;
+    the caller's generator gives the draws and is advanced as without a
+    plan. The audit hooks, the
+    noise, a tp group that spans ranks and prepared weights of the caller's
+    own run without a plan, each call anew."""
+    c = gpt.cfg
     text_token_embeds = text_token_embeds[:, : c.max_text_len]
     text_mask = text_mask[:, : c.max_text_len]
     ctx2 = torch.cat([text_token_embeds, text_token_embeds], 0).float()
     mask2 = torch.cat([text_mask, torch.zeros_like(text_mask)], 0)
-    noise_all = None if gumbel_noise is None else gumbel_noise.to(dev)
-    forced_all = (None if forced_tokens is None
-                  else forced_tokens.to(dev).long())
-    axial = gpt._axial_pos()
-    start = gpt.start_token.expand(2 * b, -1)
-    state = dict(pos=torch.zeros((), dtype=torch.long, device=dev),
-                 tok_prev=torch.zeros((2 * b,), dtype=torch.long, device=dev),
-                 tokens=torch.zeros((b, seq_len), dtype=torch.long,
-                                    device=dev))
-    if return_logits:
-        state["logits"] = torch.zeros((b, seq_len, c.vocab_size),
-                                      dtype=torch.float32, device=dev)
-
-    with route(gpt, ctx2, mask2) as step:
-        def token_step():
-            pos = state["pos"]
-            at = pos.view(1)
-            prev = gpt.tok_emb(state["tok_prev"]) + axial.index_select(
-                0, (pos - 1).clamp(min=0).view(1))
-            logits2 = step(torch.where(pos == 0, start, prev), pos)
-            cond, null = logits2[:b], logits2[b:]
-            logits = (cond if cond_scale == 1
-                      else null + (cond - null) * cond_scale)
-            tok = gumbel_sample(
-                top_k_top_p_filter(logits, top_k, top_p), generator,
-                temperature,
-                None if noise_all is None
-                else noise_all.index_select(0, at)[0])
-            carry = (tok if forced_all is None
-                     else forced_all.index_select(1, at)[:, 0])
-            state["tok_prev"].copy_(torch.cat([carry, carry], 0))
-            state["tokens"].index_copy_(1, at, tok[:, None])
-            if return_logits:
-                state["logits"].index_copy_(1, at, logits[:, None])
-            pos.add_(1)
-
-        if spans(gpt.blocks[0].self_attn.tp):
-            if draws is not None and draws.device.type != dev.type:
-                raise ValueError(f"the token loop on {dev} cannot draw "
-                                 f"from a generator on {draws.device}")
-            for i in range(seq_len):   # collectives: no graph, no sync
-                token_step()
-                if on_token is not None:
-                    on_token(i)
-        else:
-            run_steps(token_step, seq_len, dev, generator=draws,
-                      after=on_token)
-    g = c.image_encoded_dim
-    grid = state["tokens"].reshape(b, g, g)
-    return (grid, state["logits"]) if return_logits else grid
+    sampler = (top_k, top_p, temperature, cond_scale)
+    eager = spans(gpt.blocks[0].self_attn.tp)
+    store = None
+    if not (eager or return_logits or gumbel_noise is not None
+            or forced_tokens is not None):
+        store = serving_plan.store(gpt)
+        if prepared is not None and not store.owns(prepared):
+            store = None
+    if store is None:
+        loop = TokenLoop(gpt, route, ctx2, mask2,
+                         weight_casts(*route.casts(gpt)), prepared, sampler,
+                         noise=gumbel_noise, forced=forced_tokens,
+                         return_logits=return_logits)
+        loop.run(generator, on_token, eager=eager)
+        return loop.result()
+    casts = store.prepared("casts." + route.name,
+                           lambda: weight_casts(*route.casts(gpt)))
+    key = (route.name, ctx2.device, gpt.dtype, tuple(ctx2.shape),
+           mask2.dtype, *sampler)
+    loop, kept = store.plan(key, lambda: TokenLoop(
+        gpt, route, ctx2, mask2, casts, prepared, sampler))
+    if kept:
+        loop.load(ctx2, mask2)
+    loop.run(generator, on_token, keep=True)
+    return loop.result()
 
 
 def _need(generator: Optional[torch.Generator]) -> torch.Generator:

@@ -24,6 +24,7 @@ from favae_tpu_torch.models.clip_text import (BPETokenizer, CLIPTextEncoder,
                                               tokenize)
 from favae_tpu_torch.models.decode_engine import (quantize_decode_params,
                                                   sample_tokens)
+from favae_tpu_torch.models import serving_plan
 from favae_tpu_torch.models.gpt import GPT
 from favae_tpu_torch.models.vqgan import VQGANFCM, build_model
 from favae_tpu_torch.ops.decode_step_kernel import (prepare_fused_decode,
@@ -127,8 +128,10 @@ class CATModel:
         txt_cond_transformer.py:171-185): CLIP encode, CFG KV-cache
         sampling, FA-VAE decode.
 
-        The token loop is `sample_tokens` (models/decode_engine.py): its
-        exact route, `GPT.sample`'s, or with `quantized=True` an int8 one:
+        The token loop is `sample_tokens` (models/decode_engine.py), kept
+        by the GPT's serving plans across calls (`models/serving_plan.py`,
+        `drop_plans`): its exact route, `GPT.sample`'s, or with
+        `quantized=True` an int8 one:
         the whole-step kernel where `supports` says it takes the config,
         with the prompt batch padded to a multiple of 4 so that the 2B CFG
         rows are a multiple of 8 (the padding rows repeat the first prompt
@@ -158,9 +161,13 @@ class CATModel:
                             [embeds, embeds[:1].expand(b_pad - b, -1, -1)], 0)
                         mask = torch.cat(
                             [mask, mask[:1].expand(b_pad - b, -1)], 0)
-                    kw["fused"] = prepare_fused_decode(self.gpt, self.cfg.gpt)
+                    kw["fused"] = self._prepared(
+                        "fused", lambda: prepare_fused_decode(
+                            self.gpt, self.cfg.gpt), gumbel_noise)
                 else:
-                    kw["qparams"] = quantize_decode_params(self.gpt)
+                    kw["qparams"] = self._prepared(
+                        "qparams", lambda: quantize_decode_params(self.gpt),
+                        gumbel_noise)
         mark("prepare")
         with span("cat.tokens"):
             grid = sample_tokens(self.cfg.gpt, self.gpt, embeds, mask,
@@ -172,6 +179,23 @@ class CATModel:
         if timings is not None:
             timings.update(mark.report())
         return imgs, grid
+
+
+    def _prepared(self, name: str, make, gumbel_noise) -> dict:
+        """An int8 route's prepared weights: the ones the GPT's serving
+        plans keep (made once after each change of its parameters), or made
+        anew for a call with `gumbel_noise`, which runs without a plan."""
+        if gumbel_noise is not None:
+            return make()
+        return serving_plan.weights(self.gpt, name, make)
+
+    def drop_plans(self) -> None:
+        """Free the GPT's serving plans and the weights they keep
+        (`models/serving_plan.py`), as a trainer does after a preview: the
+        steps between two previews change the GPT, so the next preview
+        builds anew, and the plans would hold ~1.2 GB of casts at
+        gpt2_medium through the training."""
+        serving_plan.drop(self.gpt)
 
 
 class _Marks:

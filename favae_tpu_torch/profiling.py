@@ -46,17 +46,20 @@ def counters() -> Dict[str, float]:
     `rows_gemm.bytes`, `ffn_int8.bytes`, `codec.attn_calls`,
     `codec.attn_scores`), exact across graph replays;
     `collectives.*` (`parallel.mesh.STATS`), `data.*`
-    (`data.pipeline.STATS`) and `graphs.*` (`graphs.STATS`). The counters
-    are plain module dicts, always on: subtract two snapshots."""
+    (`data.pipeline.STATS`), `graphs.*` (`graphs.STATS`) and `serving.*`
+    (`models.serving_plan.STATS`: plans built, hits, plans dropped). The
+    counters are plain module dicts, always on: subtract two snapshots."""
     from favae_tpu_torch import graphs
     from favae_tpu_torch.data import pipeline
+    from favae_tpu_torch.models import serving_plan
     from favae_tpu_torch.parallel import mesh
     out: Dict[str, float] = {}
     for launches in graphs.launch_counts():
         out.update((f"launches.{k}", v) for k, v in launches.items())
     for group, stats in (*graphs.work_counts().items(),
                          ("collectives", mesh.STATS),
-                         ("data", pipeline.STATS), ("graphs", graphs.STATS)):
+                         ("data", pipeline.STATS), ("graphs", graphs.STATS),
+                         ("serving", serving_plan.STATS)):
         out.update((f"{group}.{k}", v) for k, v in stats.items())
     return out
 

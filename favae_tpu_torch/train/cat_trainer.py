@@ -269,7 +269,8 @@ class CATTrainer:
         its cached tokens, which stand for the images there), from a
         generator seeded from `seed` and `step` (JAX folds the step into
         its key), never the training one. Under a mesh dp rank 0's tp group
-        samples (through the split blocks) and rank 0 writes."""
+        samples (through the split blocks) and rank 0 writes. The GPT keeps
+        no serving plan after it (`CATModel.drop_plans`)."""
         if self.dp is not None and self.dp.rank != 0:
             return
         if self.cache_latents:
@@ -285,6 +286,7 @@ class CATTrainer:
         imgs, _ = self.cat.sample_images(text_ids, generator=gen,
                                          top_k=self.cfg.top_k,
                                          top_p=self.cfg.top_p)
+        self.cat.drop_plans()
         self.writer.caption_grid(name, gt, imgs, list(captions[:n]), step)
 
     @torch.no_grad()

@@ -164,6 +164,7 @@ def test_loader_wait_is_a_span():
 
 
 def test_counters_hold_every_group():
+    from favae_tpu_torch.models import serving_plan
     from favae_tpu_torch.parallel import mesh
     got = profiling.counters()
     for launches in graphs.launch_counts():
@@ -171,12 +172,13 @@ def test_counters_hold_every_group():
             assert got[f"launches.{k}"] == v
     for group, stats in (*graphs.work_counts().items(),
                          ("collectives", mesh.STATS),
-                         ("data", pipeline.STATS), ("graphs", graphs.STATS)):
+                         ("data", pipeline.STATS), ("graphs", graphs.STATS),
+                         ("serving", serving_plan.STATS)):
         for k, v in stats.items():
             assert got[f"{group}.{k}"] == v
     assert {k.split(".")[0] for k in got} == {
         "launches", "vq", "decode_step", "rows_gemm", "ffn_int8", "codec",
-        "collectives", "data", "graphs"}
+        "collectives", "data", "graphs", "serving"}
     assert all(isinstance(v, (int, float)) for v in got.values())
 
 
